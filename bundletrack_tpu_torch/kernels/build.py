@@ -3,8 +3,9 @@
 Each kernel source in `csrc/` compiles with `nvcc` into a shared library
 with a plain C interface, which is loaded with `ctypes`.  The build happens
 at first use, never at import, into `bundletrack_tpu_torch/_build/` (listed
-in .gitignore), keyed by a hash of the source and the flags: a checkout
-builds its own kernels on its first call, and a changed source rebuilds.
+in .gitignore), keyed by a hash of the flags, the source and every local
+header it includes from `csrc/` (recursively): a checkout builds its own
+kernels on its first call, and a changed source, header or flag rebuilds.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,6 +26,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -43,12 +47,32 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def local_files(source: str) -> list:
+    """`source` (a path relative to csrc/) and every file it includes with
+    `#include "..."` that exists under csrc/, recursively, source first."""
+    found, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in found:
+            continue
+        found.append(name)
+        with open(os.path.join(CSRC_DIR, name)) as f:
+            text = f.read()
+        for inc in _LOCAL_INCLUDE.findall(text):
+            rel = os.path.normpath(os.path.join(os.path.dirname(name), inc))
+            if os.path.isfile(os.path.join(CSRC_DIR, rel)):
+                todo.append(rel)
+    return found
+
+
 def library_path(source: str) -> str:
     """Where the library built from `source` (a file name in csrc/) lives."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in local_files(source):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f"\0{name}\0".encode() + f.read())
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"{stem}-{digest[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
 
 
 def build(source: str) -> str:

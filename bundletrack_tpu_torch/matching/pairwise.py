@@ -7,8 +7,9 @@ distance + normal angle under the current poses) before mutual nearest
 neighbours are taken; matches land in fixed [M] slots with a validity mask.
 
 `match_pairs_batched`, the BA all-pairs matcher, always goes through the
-fused matcher in kernels/matching.py: the CUDA kernel for tensors on the
-card, its plain PyTorch version for tensors on the CPU.
+fused matcher in kernels/matching.py, which reads the frame table in place
+through the pair indices: the CUDA kernel for tensors on the card, its
+plain PyTorch version for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from bundletrack_tpu_torch.geometry.se3 import transform_normals, transform_points
-from bundletrack_tpu_torch.kernels.matching import fused_mutual_match
+from bundletrack_tpu_torch.kernels.matching import fused_mutual_match_pairs
 from bundletrack_tpu_torch.ops.numerics import cos_deg_f32, square_f32
 from bundletrack_tpu_torch.ops.scatter import set_last_wins
 from bundletrack_tpu_torch.ops.topk import topk_stable
@@ -162,7 +163,7 @@ def match_pairs_batched(
     normals,  # [K, N, 3]
     kp_valid,  # [K, N]
     poses,  # [K, 4, 4]
-    pair_i,  # [P]
+    pair_i,  # [P] int32 (any integer type)
     pair_j,  # [P]
     pair_valid,  # [P] bool
     max_dist: float,
@@ -171,15 +172,13 @@ def match_pairs_batched(
 ) -> MatchResult:
     """All-pairs matching over a frame table — the BA edge builder
     (reference Bundler::optimizeGPU per-pair loop, src/Bundler.cpp:298-324).
-    Both sides of every (i, j) pair are gathered and matched by the fused
-    matcher in one launch."""
+    The fused matcher reads the [K, N, D] table in place through the pair
+    indices and matches every (i, j) pair in one launch; no [P, N, D] copy
+    of either side is made."""
     world = transform_points(poses, pts)  # [K, N, 3]
     wnrm = transform_normals(poses, normals)
-    best_b, dist, mutual = fused_mutual_match(
-        desc[pair_i], desc[pair_j],
-        world[pair_i], world[pair_j],
-        wnrm[pair_i], wnrm[pair_j],
-        kp_valid[pair_i], kp_valid[pair_j],
+    best_b, dist, mutual = fused_mutual_match_pairs(
+        desc, world, wnrm, kp_valid, pair_i, pair_j,
         max_dist=max_dist,
         max_normal_deg=max_normal_deg,
     )

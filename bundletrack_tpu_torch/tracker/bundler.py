@@ -168,19 +168,26 @@ def make_track_frame(cfg: TrackerConfig, H: int, W: int):
     )
     # pairs whose later frame is the new one: their verified edges feed the landmarks
     new_pairs = [p for p in range(P_PAIRS) if pair_j_np[p] == K_BA - 1]
-    pair_index = {}  # device -> (pair_i, pair_j), uploaded once
+    # device -> (pair_i, pair_j) int64 for torch indexing, then the same as
+    # int32 for the matcher kernel, uploaded once: an int32 index costs torch
+    # a cast launch at every use, and the kernel takes int32
+    pair_index = {}
 
     def pairs_on(dev):
         if dev not in pair_index:
-            pair_index[dev] = tuple(torch.as_tensor(a, device=dev) for a in (pair_i_np, pair_j_np))
+            pair_index[dev] = tuple(
+                torch.as_tensor(a.astype(t), device=dev)
+                for t in (np.int64, np.int32) for a in (pair_i_np, pair_j_np)
+            )
         return pair_index[dev]
 
     def ba_pair_section(ba_desc, ba_pts, ba_nrm, ba_kpv, ba_pose, ba_valid,
-                        mappoints, pool_slot_of, pair_i, pair_j, phases_pairs):
+                        mappoints, pool_slot_of, pairs, phases_pairs):
         """Match -> propagate -> RANSAC over the BA pairs."""
+        pair_i, pair_j, pair_i32, pair_j32 = pairs
         pair_valid = ba_valid[pair_i] & ba_valid[pair_j]
         bm = match_pairs_batched(
-            ba_desc, ba_pts, ba_nrm, ba_kpv, ba_pose, pair_i, pair_j, pair_valid,
+            ba_desc, ba_pts, ba_nrm, ba_kpv, ba_pose, pair_i32, pair_j32, pair_valid,
             max_dist=fc.max_dist_no_neighbor,
             max_normal_deg=fc.max_normal_no_neighbor,
             max_matches=M,
@@ -302,10 +309,11 @@ def make_track_frame(cfg: TrackerConfig, H: int, W: int):
             app(state.kf_tchan, fd.tchan),
         )
         pool_slot_of = torch.cat([slots, torch.full((1,), -1, dtype=slots.dtype, device=dev)])
-        pair_i, pair_j = pairs_on(dev)
+        pairs = pairs_on(dev)
+        pair_i, pair_j = pairs[:2]
         bm, mpa, mpb, edge_valid, n_edges_new = ba_pair_section(
             ba_desc, ba_pts, ba_nrm, ba_kpv, ba_pose, ba_valid,
-            state.mappoints, pool_slot_of, pair_i, pair_j, phases_pairs,
+            state.mappoints, pool_slot_of, pairs, phases_pairs,
         )
         no_ba = n_edges_new <= cfg.bundle.min_fm_edges_newframe
 

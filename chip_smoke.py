@@ -6,12 +6,15 @@
 1. Prints the card's name and power limit, and builds every CUDA kernel of
    the path from bundletrack_tpu_torch/csrc/ (one nvcc per source, in
    parallel).
-2. Kernel phase: at the main-path shapes (P=120 pairs, N=512 keypoints,
-   D=256) it calls the fused matcher's wrapper on card tensors and holds it
-   against its plain PyTorch version on the same inputs, on three input
-   sets — keypoints of rendered 480x640 frames, the same with every column
-   gated out, and with half the keypoints invalid — and times both with
-   CUDA events (median of 25 runs after warm-up).
+2. Kernel phase: on the BA table that the tracker builds at full width
+   (K=16 frames of N=512 keypoints, D=256, all P=120 pairs) it calls the
+   fused matcher's table-form wrapper on card tensors and holds it against
+   its plain PyTorch version on the same inputs, on four input sets —
+   keypoints of rendered 480x640 frames, the same with every column gated
+   out, with half the keypoints invalid, and with exact ties — and times
+   both with CUDA events (median of 25 runs after warm-up), beside the dot
+   alone in torch.bmm as a yardstick.  The bound is the largest of three
+   terms: bytes, bf16 products and the epilogue's f32 instructions.
 3. Tracker phase: tracks a rendered 480x640 sequence with the default
    TrackerConfig (max_ba_frames=16 -> 120 BA pairs, M=256, 2000 RANSAC
    trials) and holds every frame to the pose bars of the test suite; the
@@ -34,7 +37,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-P_PAIRS, N_KPTS, D_DESC = 120, 512, 256
+K_BA, P_PAIRS, N_KPTS, D_DESC = 16, 120, 512, 256
 NUM_FRAMES = 20
 TIMED_RUNS = 25
 DIST_ATOL = 1e-4  # the bf16-product dot summed in another order: ~1e-6 on O(1) distances
@@ -44,10 +47,16 @@ DIST_ATOL = 1e-4  # the bf16-product dot summed in another order: ~1e-6 on O(1) 
 MUTUAL_MAX_DIFF_ROWS = 8
 
 # Published peaks of one H100 SXM (dense): HBM bytes/s and bf16 tensor-core
-# FLOP/s, plus the f32 rate outside the tensor cores for the gate arithmetic.
+# FLOP/s; and the f32 instruction rate outside the tensor cores, 132 SMs x
+# 128 FP32 lanes x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
-F32_FLOP_PER_S = 67e12
+F32_INSTR_PER_S = 132 * 128 * 1.98e9
+# f32 instructions per candidate in the kernel's epilogue (csrc/
+# fused_mutual_match.cu, gated_dist and the loop around it): distance 2
+# (add, fma), gate 13 (3 sub, 6 mul, 4 add), 2 compares and 1 select,
+# row minimum 2 (compare, select), column minimum 2 (select, min)
+GATE_INSTR_PER_CANDIDATE = 22
 
 
 def log(*args):
@@ -81,94 +90,118 @@ def cuda_median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def frame_features(seq, cfg, device):
-    """Keypoints of every rendered frame through the port's own preprocess
-    and frontend: desc [F,N,D], pts/normals [F,N,3], valid [F,N]."""
+def kernel_inputs(table):
+    """The four input sets on the BA table: as rendered; every column gated
+    out (frames 10 m apart); the upper half of every frame's keypoints
+    invalid (A side and B side); and exact ties (descriptors in multiples of
+    1/64, so the dot is exact in any sum order, and keypoint 2m+1 a copy of
+    keypoint 2m, so each row ties between 2m and 2m+1)."""
     import torch
 
-    from bundletrack_tpu_torch.frontend.pipeline import extract_frame_features
-    from bundletrack_tpu_torch.tracker.bundler import _normalize_obs, _preprocess
-    from bundletrack_tpu_torch.tracker.state import FrameObservation
+    desc, world, wnrm, valid = table
+    K, N = valid.shape
+    far = world + 10.0 * torch.arange(K, device=world.device, dtype=world.dtype)[:, None, None]
+    half = valid.clone()
+    half[:, N // 2:] = False
+    ties = [torch.round(desc * 64) / 64, world.clone(), wnrm.clone(), valid.clone()]
+    for t in ties:
+        t[:, 1::2] = t[:, 0::2]
+    return {
+        "rendered": table,
+        "all_gated": (desc, far, wnrm, valid),
+        "half_invalid": (desc, world, wnrm, half),
+        "exact_ties": tuple(ties),
+    }
 
-    K = torch.as_tensor(seq.K, device=device)
-    feats = []
-    for f in range(len(seq.gray)):
-        obs = _normalize_obs(FrameObservation(
-            gray=torch.as_tensor(seq.gray[f], device=device),
-            depth=torch.as_tensor(seq.depth[f], device=device),
-            mask=torch.as_tensor(seq.mask[f], device=device),
-            K=K,
-        ))
-        mask, pts_map, nrm_map, val_map, _, _ = _preprocess(obs, cfg)
-        feats.append(extract_frame_features(obs.gray, mask, pts_map, nrm_map, val_map, cfg.frontend))
-    return [torch.stack([getattr(ff, k) for ff in feats]) for k in ("desc", "pts", "normals", "valid")]
+
+def check_kernel(name, got, ref) -> float:
+    """Holds the kernel's results to the plain version's; returns the largest
+    |dist| difference on rows with a candidate."""
+    import torch
+
+    from bundletrack_tpu_torch.kernels import matching as km
+
+    (bb, dd, mm), (rb, rd, rm) = got, ref
+    has_k, has_r = dd < km.BIG, rd < km.BIG
+    if not torch.equal(has_k, has_r):
+        raise AssertionError(f"{name}: rows with a gated candidate differ")
+    err = float((dd - rd)[has_k].abs().max()) if bool(has_k.any()) else 0.0
+    both = mm & rm  # best_b identical on every row that is mutual on both sides
+    same_b = bool(torch.equal(bb[both], rb[both]))
+    diff_rows = (mm != rm).nonzero().tolist()
+    log(f"kernel[{name}]: rows with candidate {float(has_k.float().mean()):.4f}  "
+        f"mutual {int(mm.sum())} vs plain {int(rm.sum())}  rows that differ {len(diff_rows)}  "
+        f"best_b equal on mutual rows {same_b}  max |dist diff| {err:.3e}")
+    for p, i in diff_rows:
+        log(f"  mutual differs at pair {p} row {i}: kernel ({bool(mm[p, i])}, best_b {int(bb[p, i])}, "
+            f"dist {float(dd[p, i]):.7g})  plain ({bool(rm[p, i])}, best_b {int(rb[p, i])}, "
+            f"dist {float(rd[p, i]):.7g})")
+    if not same_b or err > DIST_ATOL or len(diff_rows) > MUTUAL_MAX_DIFF_ROWS:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    if not bool((bb[~has_k] == 0).all()):
+        raise AssertionError(f"{name}: a row without a candidate has best_b != 0")
+    N = dd.shape[1]
+    if name == "all_gated" and (bool(mm.any()) or bool(has_k.any())):
+        raise AssertionError("all_gated: the kernel let a gated column through")
+    if name == "half_invalid" and (bool(has_k[:, N // 2:].any()) or bool((bb[has_k] >= N // 2).any())):
+        raise AssertionError("half_invalid: an invalid keypoint has a candidate")
+    if name == "exact_ties":
+        # exact arithmetic on both sides: equal results, the first of each
+        # duplicate wins, and no near tie can flip `mutual`
+        if not (torch.equal(dd, rd) and torch.equal(bb, rb) and torch.equal(mm, rm)):
+            raise AssertionError("exact_ties: the kernel differs from the plain version")
+        if not bool((bb[has_k] % 2 == 0).all()):
+            raise AssertionError("exact_ties: a tie did not go to the first index")
+    if name in ("rendered", "half_invalid", "exact_ties") and int(mm.sum()) < 1000:
+        raise AssertionError(f"{name}: too few mutual matches")
+    return err
 
 
 def kernel_phase(seq, cfg, device) -> dict:
     import torch
 
-    from bundletrack_tpu_torch.geometry.se3 import transform_normals, transform_points
     from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.matcher_bench import ba_table
 
-    K_BA = cfg.bundle.max_ba_frames
-    desc, pts, nrm, valid = frame_features(seq, cfg, device)
-    desc, pts, nrm, valid = desc[:K_BA], pts[:K_BA], nrm[:K_BA], valid[:K_BA]
-    poses = torch.as_tensor(np.linalg.inv(seq.ob_in_cam[:K_BA]), device=device)  # cam -> model
-    world = transform_points(poses, pts)
-    wnrm = transform_normals(poses, nrm)
-    pi, pj = (torch.as_tensor(a, device=device) for a in np.triu_indices(K_BA, k=1))
-    assert len(pi) == P_PAIRS and desc.shape[1:] == (N_KPTS, D_DESC), (len(pi), desc.shape)
+    table, (pi, pj) = ba_table(seq, cfg, device)
+    desc = table[0]
+    K, N, D = desc.shape
+    P = len(pi)
+    assert (K, P, N, D) == (K_BA, P_PAIRS, N_KPTS, D_DESC), (K, P, N, D)
     fc = cfg.feature_corres
     gates = dict(max_dist=fc.max_dist_no_neighbor, max_normal_deg=fc.max_normal_no_neighbor)
-    base = [desc[pi], desc[pj], world[pi], world[pj], wnrm[pi], wnrm[pj], valid[pi], valid[pj]]
-    far = list(base)
-    far[3] = base[3] + 10.0  # every column gated out
-    half = list(base)
-    half[6] = base[6].clone()
-    half[6][:, N_KPTS // 2:] = False  # half the A-side keypoints invalid
 
     max_err = 0.0
-    for name, args in (("rendered", base), ("all_gated", far), ("half_invalid", half)):
-        bb, dd, mm = km.fused_mutual_match(*args, **gates)
-        rb, rd, rm = km.fused_mutual_match_reference(*args, **gates)
+    for name, args in kernel_inputs(table).items():
+        got = km.fused_mutual_match_pairs(*args, pi, pj, **gates)
+        ref = km.fused_mutual_match_pairs_reference(*args, pi, pj, **gates)
         torch.cuda.synchronize()
-        has_k, has_r = dd < km.BIG, rd < km.BIG
-        if not torch.equal(has_k, has_r):
-            raise AssertionError(f"{name}: rows with a gated candidate differ")
-        err = float((dd - rd)[has_k].abs().max()) if bool(has_k.any()) else 0.0
-        # best_b identical on every row that is mutual on both sides
-        both = mm & rm
-        same_b = bool(torch.equal(bb[both], rb[both]))
-        diff_rows = (mm != rm).nonzero().tolist()
-        log(f"kernel[{name}]: rows with candidate {float(has_k.float().mean()):.4f}  "
-            f"mutual {int(mm.sum())} vs plain {int(rm.sum())}  rows that differ {len(diff_rows)}  "
-            f"best_b equal on mutual rows {same_b}  max |dist diff| {err:.3e}")
-        for p, i in diff_rows:
-            log(f"  mutual differs at pair {p} row {i}: kernel ({bool(mm[p, i])}, best_b {int(bb[p, i])}, "
-                f"dist {float(dd[p, i]):.7g})  plain ({bool(rm[p, i])}, best_b {int(rb[p, i])}, "
-                f"dist {float(rd[p, i]):.7g})")
-        if not same_b or err > DIST_ATOL or len(diff_rows) > MUTUAL_MAX_DIFF_ROWS:
-            raise AssertionError(f"{name}: kernel disagrees with its plain version")
-        if name == "all_gated" and (bool(mm.any()) or bool(has_k.any())):
-            raise AssertionError("all_gated: the kernel let a gated column through")
-        if name == "half_invalid" and bool(mm[:, N_KPTS // 2:].any()):
-            raise AssertionError("half_invalid: an invalid keypoint was matched")
-        max_err = max(max_err, err)
+        max_err = max(max_err, check_kernel(name, got, ref))
 
-    ms = cuda_median_ms(lambda: km.fused_mutual_match(*base, **gates))
-    plain_ms = cuda_median_ms(lambda: km.fused_mutual_match_reference(*base, **gates))
-    P, N, D = P_PAIRS, N_KPTS, D_DESC
-    in_bytes = 2 * P * N * D * 4 + 4 * P * N * 3 * 4 + 2 * P * N  # desc, geometry, valid
+    ms = cuda_median_ms(lambda: km.fused_mutual_match_pairs(*table, pi, pj, **gates))
+    plain_ms = cuda_median_ms(lambda: km.fused_mutual_match_pairs_reference(*table, pi, pj, **gates))
+    # yardstick: the descriptor dot alone, on operands gathered beforehand
+    # (the port never calls it, and it is not the whole function)
+    a = desc[pi.long()].to(torch.bfloat16)
+    bt = desc[pj.long()].to(torch.bfloat16).transpose(1, 2)
+    dot_ms = cuda_median_ms(lambda: torch.bmm(a, bt))
+    log(f"yardstick: torch.bmm on the gathered bf16 operands (dot only) {dot_ms:.4f} ms")
+
+    # the least time for the same work: the largest of three terms
+    in_bytes = K * N * D * 4 + 2 * K * N * 3 * 4 + K * N + 2 * P * 4  # table, geometry, valid, pairs
     out_bytes = P * N * (4 + 4 + 1)
-    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    # bf16 products (2 flops each) on the tensor-core rate + the f32 gate and
-    # distance arithmetic (~20 flops per candidate) outside it
-    ops_ms = (2 * P * N * N * D / BF16_FLOP_PER_S + 20 * P * N * N / F32_FLOP_PER_S) * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    log(f"kernel fused_mutual_match at P={P} N={N} D={D}: {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-        f"bound {bound_ms:.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+    terms = {
+        "bytes": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+        "bf16 products": 2 * P * N * N * D / BF16_FLOP_PER_S * 1e3,
+        "gate instructions": GATE_INSTR_PER_CANDIDATE * P * N * N / F32_INSTR_PER_S * 1e3,
+    }
+    term = max(terms, key=terms.get)
+    bound_ms = terms[term]
+    log("bound terms: " + ", ".join(f"{k} {v:.5f} ms" for k, v in terms.items()))
+    log(f"kernel fused_mutual_match_pairs at K={K} P={P} N={N} D={D}: {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"bound {bound_ms:.5f} ms ({term})  {100 * bound_ms / ms:.1f} % of bound")
     return {
-        "name": "fused_mutual_match",
+        "name": "fused_mutual_match_pairs",
         "route": "cuda",
         "source": "bundletrack_tpu_torch/csrc/fused_mutual_match.cu",
         "replaces": "bundletrack_tpu/pallas_kernels/matching.py:165",
@@ -177,7 +210,7 @@ def kernel_phase(seq, cfg, device) -> dict:
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_by": "bytes" if term == "bytes" else "operations",
         "library_ms": None,  # no single PyTorch call computes this function
     }
 

@@ -7,6 +7,10 @@ runs where only the port is installed:
     python -m pytest --noconftest -o addopts="" tests/test_torch_kernels_cuda.py -q
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -50,6 +54,7 @@ def _case(seed, P, N, D):
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,N,D", [(4, 200, 256), (2, 64, 64), (3, 100, 30)])  # ragged N and odd D too
 def test_fused_kernel_matches_plain_version(P, N, D):
+    """The gathered-sides adapter over the same kernel."""
     _need_card()
     args = _case(P * N + D, P, N, D)
     before = km.launches
@@ -63,6 +68,152 @@ def test_fused_kernel_matches_plain_version(P, N, D):
     assert float((mm == rm).float().mean()) >= MUTUAL_AGREE
     both = mm & rm
     assert torch.equal(bb[both], rb[both])
+
+
+# at most this many rows' `mutual` may differ from the plain version: a
+# near tie in a column minimum (a dist difference of ~1e-6) flips it
+MUTUAL_MAX_DIFF_ROWS = 8
+
+
+def _table(seed, K, N, D):
+    """Frames that are noisy shuffled copies of frame 0 (so true matches
+    exist), a fifth of the keypoints invalid."""
+    rng = np.random.RandomState(seed)
+    base = rng.randn(N, D).astype(np.float32)
+    pos = (rng.rand(N, 3) * 0.3).astype(np.float32)
+    nrm = rng.randn(N, 3).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    perms = [np.arange(N)] + [rng.permutation(N) for _ in range(K - 1)]
+    desc = np.stack([base[p] + 0.3 * rng.randn(N, D) for p in perms]).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    world = np.stack([pos[p] + 0.003 * rng.randn(N, 3) for p in perms]).astype(np.float32)
+    wnrm = np.stack([nrm[p] for p in perms])
+    valid = rng.rand(K, N) > 0.2
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in (desc, world, wnrm, valid)]
+
+
+def _pairs(K):
+    """Every i < j, plus a reversed pair, a frame against itself and a repeat."""
+    pi, pj = np.triu_indices(K, k=1)
+    extra = [(1, 0), (0, 0), (0, 1)] if K < 16 else []
+    pi = np.concatenate([pi, [a for a, _ in extra]]).astype(np.int32)
+    pj = np.concatenate([pj, [b for _, b in extra]]).astype(np.int32)
+    return torch.from_numpy(pi), torch.from_numpy(pj)
+
+
+def _pairs_on_card(table, pairs, max_dist=0.02):
+    """(kernel results, plain results) on the CPU, after checking the route."""
+    before = km.launches
+    got = km.fused_mutual_match_pairs(*(a.cuda() for a in table), *(p.cuda() for p in pairs),
+                                      max_dist=max_dist, max_normal_deg=45.0)
+    torch.cuda.synchronize()
+    assert km.launches == before + 1
+    ref = km.fused_mutual_match_pairs_reference(*table, *pairs, max_dist=max_dist, max_normal_deg=45.0)
+    return [t.cpu() for t in got], ref
+
+
+def _assert_agree(got, ref):
+    (bb, dd, mm), (rb, rd, rm) = got, ref
+    has = rd < km.BIG
+    assert torch.equal(dd < km.BIG, has)  # the gate is bit-identical
+    assert torch.equal(bb[~has], torch.zeros_like(bb[~has]))  # no candidate: index 0
+    if bool(has.any()):
+        assert float((dd - rd)[has].abs().max()) <= DIST_ATOL
+    both = mm & rm
+    assert torch.equal(bb[both], rb[both])
+    diff = (mm != rm).nonzero().tolist()
+    for p, i in diff:
+        print(f"mutual differs at pair {p} row {i}: kernel ({bool(mm[p, i])}, {int(bb[p, i])}, "
+              f"{float(dd[p, i]):.7g}) plain ({bool(rm[p, i])}, {int(rb[p, i])}, {float(rd[p, i]):.7g})")
+    assert len(diff) <= MUTUAL_MAX_DIFF_ROWS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,D", [
+    (16, 512, 256),  # the main path: all 120 pairs of the BA table
+    (4, 100, 30),  # ragged N and D: padding rows, columns and depth never count
+    (4, 200, 256),
+    (4, 256, 64),
+])
+def test_pairs_kernel_matches_plain_version(K, N, D):
+    _need_card()
+    table = _table(K * N + D, K, N, D)
+    got, ref = _pairs_on_card(table, _pairs(K))
+    _assert_agree(got, ref)
+    assert int(got[2].sum()) > 10 * K
+
+
+@pytest.mark.cuda
+def test_pairs_kernel_all_gated():
+    _need_card()
+    table = _table(1, 4, 200, 64)
+    table[1] = table[1] + 10.0 * torch.arange(4.0)[:, None, None]  # frames 10 m apart
+    pi, pj = np.triu_indices(4, k=1)
+    got, ref = _pairs_on_card(table, (torch.from_numpy(pi.astype(np.int32)), torch.from_numpy(pj.astype(np.int32))))
+    _assert_agree(got, ref)
+    bb, dd, mm = got
+    assert not bool((dd < km.BIG).any()) and not bool(mm.any())
+    assert bool((dd == km.BIG).all())
+
+
+@pytest.mark.cuda
+def test_pairs_kernel_half_invalid():
+    _need_card()
+    K, N = 4, 256
+    table = _table(2, K, N, 64)
+    table[3] = table[3].clone()
+    table[3][:, N // 2:] = False  # the upper half of every frame, A side and B side
+    got, ref = _pairs_on_card(table, _pairs(K))
+    _assert_agree(got, ref)
+    bb, dd, mm = got
+    assert not bool((dd[:, N // 2:] < km.BIG).any())
+    assert not bool((bb[dd < km.BIG] >= N // 2).any())
+    assert int(mm.sum()) > 10 * K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D", [(512, 256), (100, 30)])
+def test_pairs_kernel_exact_ties(N, D):
+    """Descriptors in multiples of 1/64 (the dot is exact in any sum order)
+    and keypoint 2m+1 a copy of keypoint 2m: each row ties exactly between
+    2m and 2m+1, and the first must win on the tensor cores too."""
+    _need_card()
+    table = _table(3, 4, N, D)
+    table[0] = torch.round(table[0] * 64) / 64
+    for t in table:
+        t[:, 1::2] = t[:, 0::2]
+    got, ref = _pairs_on_card(table, _pairs(4))
+    _assert_agree(got, ref)
+    (bb, dd, mm), (rb, rd, rm) = got, ref
+    assert torch.equal(dd, rd) and torch.equal(bb, rb) and torch.equal(mm, rm)
+    assert bool((bb[dd < km.BIG] % 2 == 0).all())
+    assert int(mm.sum()) > 10
+
+
+_OUT_OF_RANGE = r"""
+import torch
+from bundletrack_tpu_torch.kernels import matching as km
+K, N, D = 4, 64, 32
+t = [torch.randn(K, N, D).cuda(), torch.rand(K, N, 3).cuda(), torch.randn(K, N, 3).cuda(),
+     torch.ones(K, N, dtype=torch.bool).cuda()]
+pi = torch.tensor([0, 1], dtype=torch.int32).cuda()
+pj = torch.tensor([1, K], dtype=torch.int32).cuda()
+km.fused_mutual_match_pairs(*t, pi, pj, max_dist=0.05, max_normal_deg=45.0)
+torch.cuda.synchronize()
+print("NO ERROR")
+"""
+
+
+@pytest.mark.cuda
+def test_pairs_kernel_index_outside_the_table_is_a_cuda_error():
+    """The kernel traps on a frame index outside [0, K) instead of reading
+    past the table.  A trap leaves the process's CUDA context unusable, so
+    it runs in a child process."""
+    _need_card()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _OUT_OF_RANGE], cwd=repo, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0 and "NO ERROR" not in proc.stdout, proc.stdout + proc.stderr[-2000:]
 
 
 @pytest.mark.cuda

@@ -1,9 +1,11 @@
 """Parity of the port's matching (pairwise, landmarks, fused matcher) with the JAX package.
 
-The fused matcher's plain PyTorch version is held against the Pallas kernel
-run in interpret mode (as tests/test_pallas_kernels.py runs it), on that
-file's three cases plus a case built from two rendered frames.  The CUDA
-kernel itself is held against the plain version on the card by
+The fused matcher's plain PyTorch versions are held against the Pallas
+kernel run in interpret mode (as tests/test_pallas_kernels.py runs it): the
+gathered-sides form on that file's three cases plus a case built from two
+rendered frames, and the table form on a K=4 frame table (rendered,
+random, ragged and exact-tie frames) whose sides are gathered with numpy.
+The CUDA kernel itself is held against the plain version on the card by
 tests/test_torch_kernels_cuda.py and by chip_smoke.py.
 """
 
@@ -130,6 +132,166 @@ def test_fused_wrapper_counts_only_launches():
     before = km.launches
     km.fused_mutual_match(*(_t(a) for a in _random_case(3, 1, 16, 8)), max_dist=0.05, max_normal_deg=45.0)
     assert km.launches == before  # CPU tensors take the plain version
+
+
+# The table form: a K=4 frame table read through pair indices.  The pairs
+# hold a pair in both orders, a frame against itself and a repeated pair.
+TABLE_PAIRS = np.array([(0, 1), (1, 0), (0, 0), (2, 3), (3, 1), (0, 1)], np.int32).T
+
+
+def _rendered_table(rendered, patch):
+    """Frames 0-2 as rendered, frame 3 = frame 1 with every other keypoint invalid."""
+    feats, poses = rendered
+    fs = feats[patch]
+    frames = [0, 1, 2, 1]
+    desc = np.stack([fs[f][0] for f in frames])
+    world = np.stack([np.einsum("ij,nj->ni", poses[f][:3, :3], fs[f][1]) + poses[f][:3, 3] for f in frames])
+    wnrm = np.stack([np.einsum("ij,nj->ni", poses[f][:3, :3], fs[f][2]) for f in frames])
+    valid = np.stack([fs[f][3] for f in frames])
+    valid[3, ::2] = False
+    return [desc.astype(np.float32), world.astype(np.float32), wnrm.astype(np.float32), valid], 0.02
+
+
+def _random_frame_table(seed, N, D):
+    """Frame 1 is a shuffled noisy copy of frame 0 (true matches exist);
+    frames 2 and 3 are random with a fifth of their keypoints invalid."""
+    rng = np.random.RandomState(seed)
+    desc = rng.randn(4, N, D).astype(np.float32)
+    perm = rng.permutation(N)
+    desc[1] = desc[0][perm] + 0.01 * rng.randn(N, D)
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    world = rng.rand(4, N, 3).astype(np.float32)
+    world[1] = world[0][perm]
+    wnrm = rng.randn(4, N, 3).astype(np.float32)
+    wnrm /= np.linalg.norm(wnrm, axis=-1, keepdims=True)
+    wnrm[1] = wnrm[0][perm]
+    valid = np.ones((4, N), bool)
+    valid[2:] = rng.rand(2, N) > 0.2
+    return [desc, world, wnrm, valid], 0.05
+
+
+def _tie_frame_table(seed, N, D):
+    """Exact ties: descriptors are multiples of 1/64 (every product and
+    partial sum is exact in f32, so the dot does not depend on the sum
+    order), and keypoint 2m+1 copies keypoint 2m (descriptor, position,
+    normal, validity).  Each row then ties between 2m and 2m+1, and the
+    first, 2m, must win; duplicated rows tie in the column minimum and are
+    both mutual."""
+    (desc, world, wnrm, valid), max_dist = _random_frame_table(seed, N, D)
+    desc = np.round(desc * 64) / 64
+    for t in (desc, world, wnrm, valid):
+        t[:, 1::2] = t[:, 0::2]
+    return [desc.astype(np.float32), world, wnrm, valid], max_dist
+
+
+def _table_case(rendered, case):
+    if case == "rendered_N128_D64":
+        return _rendered_table(rendered, 8)
+    if case == "rendered_N128_D256":
+        return _rendered_table(rendered, 16)
+    if case == "random_N64_D32":
+        return _random_frame_table(10, 64, 32)
+    if case == "ragged_N50_D30":
+        return _random_frame_table(11, 50, 30)
+    assert case == "exact_ties_N64_D32"
+    return _tie_frame_table(12, 64, 32)
+
+
+TABLE_CASES = ["rendered_N128_D64", "rendered_N128_D256", "random_N64_D32", "ragged_N50_D30", "exact_ties_N64_D32"]
+
+
+def _gathered(table):
+    """The JAX function's [P, N, ...] sides, gathered with numpy."""
+    desc, world, wnrm, valid = table
+    pi, pj = TABLE_PAIRS
+    return [desc[pi], desc[pj], world[pi], world[pj], wnrm[pi], wnrm[pj], valid[pi], valid[pj]]
+
+
+@pytest.mark.parametrize("case", TABLE_CASES)
+def test_pairs_plain_version_matches_pallas_interpret(rendered, case):
+    table, max_dist = _table_case(rendered, case)
+    gates = dict(max_dist=max_dist, max_normal_deg=45.0)
+    got = km.fused_mutual_match_pairs_reference(*(_t(a) for a in table), *map(_t, TABLE_PAIRS), **gates)
+    ref = j_fused(*(jnp.asarray(a) for a in _gathered(table)), interpret=True, **gates)
+    bb, dd, mm = (g.numpy() for g in got)
+    rb, rd, rm = (np.asarray(r) for r in ref)
+    np.testing.assert_array_equal(dd < 1e30, rd < 1e30)  # the gate is exact f32 on both sides
+    has = rd < 1e30
+    np.testing.assert_allclose(dd[has], rd[has], atol=DIST_ATOL)
+    assert (mm == rm).mean() >= MUTUAL_AGREE
+    both = mm & rm
+    np.testing.assert_array_equal(bb[both], rb[both])
+    np.testing.assert_array_equal(bb[~has], 0)  # no candidate: index 0, as jnp.argmin
+    np.testing.assert_array_equal(rb[~has], 0)
+    for r in (bb, dd, mm):  # the repeated pair gives the same rows
+        np.testing.assert_array_equal(r[0], r[5])
+    if not case.startswith("exact_ties"):
+        # a pair and its reverse: a mutual match i -> j of (0, 1) is mutual
+        # j -> i in (1, 0), up to near ties that the other sum order may flip
+        m01 = np.flatnonzero(mm[0])
+        assert (mm[1][bb[0][m01]] & (bb[1][bb[0][m01]] == m01)).mean() >= MUTUAL_AGREE
+    assert mm.sum() > 20
+    valid = table[3]
+    if case.startswith("rendered"):
+        # frame 3's invalid keypoints never match, as A (pair 4) or as B (pair 3)
+        assert not mm[4][~valid[3]].any()
+        assert not np.isin(bb[3][mm[3]], np.flatnonzero(~valid[3])).any()
+    if case.startswith("exact_ties"):
+        # exact arithmetic on both sides: equal distances, the first of
+        # each duplicate wins, and duplicated rows are mutual together
+        np.testing.assert_array_equal(dd, rd)
+        np.testing.assert_array_equal(mm, rm)
+        assert (bb[has] % 2 == 0).all()
+        np.testing.assert_array_equal(mm[:, 0::2], mm[:, 1::2])
+
+
+@pytest.mark.parametrize("case", TABLE_CASES)
+def test_pairs_table_form_equals_adapter(rendered, case):
+    """The table form and the gathered-sides adapter run the same plain
+    arithmetic on the same values on the CPU: equal to the bit."""
+    table, max_dist = _table_case(rendered, case)
+    gates = dict(max_dist=max_dist, max_normal_deg=45.0)
+    got = km.fused_mutual_match_pairs(*(_t(a) for a in table), *map(_t, TABLE_PAIRS), **gates)
+    ref = km.fused_mutual_match(*(_t(a) for a in _gathered(table)), **gates)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int16])
+def test_pairs_take_any_integer_index_type(rendered, dtype):
+    table, max_dist = _random_frame_table(13, 32, 16)
+    gates = dict(max_dist=max_dist, max_normal_deg=45.0)
+    ref = km.fused_mutual_match_pairs(*(_t(a) for a in table), *map(_t, TABLE_PAIRS), **gates)
+    got = km.fused_mutual_match_pairs(*(_t(a) for a in table), *(_t(a).to(dtype) for a in TABLE_PAIRS), **gates)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
+
+
+@pytest.mark.parametrize("bad", ["desc_2d", "world_shape", "valid_shape", "pair_length", "float_pairs"])
+def test_pairs_reject_bad_arguments(bad):
+    desc, world, wnrm, valid = (_t(a) for a in _random_frame_table(14, 16, 8)[0])
+    pi, pj = map(_t, TABLE_PAIRS)
+    if bad == "desc_2d":
+        desc = desc[0]
+    elif bad == "world_shape":
+        world = world[:, :8]
+    elif bad == "valid_shape":
+        valid = valid[:3]
+    elif bad == "pair_length":
+        pj = pj[:-1]
+    else:
+        pi = pi.float()
+    with pytest.raises(ValueError):
+        km.fused_mutual_match_pairs(desc, world, wnrm, valid, pi, pj, max_dist=0.05, max_normal_deg=45.0)
+
+
+def test_pairs_index_outside_the_table_raises():
+    table = [_t(a) for a in _random_frame_table(15, 16, 8)[0]]
+    pi, pj = map(_t, TABLE_PAIRS)
+    pj[2] = 4  # K = 4
+    with pytest.raises(IndexError):
+        km.fused_mutual_match_pairs(*table, pi, pj, max_dist=0.05, max_normal_deg=45.0)
 
 
 def _match_args(rendered, fa, fb, lib):
