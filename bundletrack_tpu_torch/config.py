@@ -119,8 +119,8 @@ class P2PConfig:
 
 @_frozen
 class FrontendConfig:
-    """Keypoint frontend settings.  Only the classical frontend is ported;
-    the LF-Net fields are kept so configurations load unchanged."""
+    """Keypoint frontend settings: the classical frontend and LF-Net
+    (reference: lf-net-release/run_server.py:66-106)."""
 
     kind: str = "classical"  # "lfnet" | "classical"
     input_size: int = 400

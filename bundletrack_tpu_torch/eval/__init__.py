@@ -1,1 +1,1 @@
-"""Pose-accuracy metrics (ADD-S AUC, rotation and translation errors)."""
+"""Pose-accuracy metrics (ADD and ADD-S AUC, rotation and translation errors)."""

@@ -1,8 +1,9 @@
-"""Pose accuracy metrics: ADD-S with the VOCap AUC, and pose errors.
+"""Pose accuracy metrics: ADD and ADD-S with the VOCap AUC, and pose errors.
 
 The port's own copy of the parts of bundletrack_tpu/eval/metrics.py the
-tracker checks use (reference: scripts/Utils.py adi, scripts/eval_ycbineoat.py
-VOCap with a 0.1 m cutoff x100).  Host-side numpy + scipy.
+tracker checks and the YCBInEOAT evaluation use (reference: scripts/Utils.py
+add/adi, scripts/eval_ycbineoat.py VOCap with a 0.1 m cutoff x100).
+Host-side numpy + scipy.
 """
 
 from __future__ import annotations
@@ -14,6 +15,12 @@ from scipy.spatial.transform import Rotation
 
 def _transform(pose: np.ndarray, pts: np.ndarray) -> np.ndarray:
     return pts @ pose[:3, :3].T + pose[:3, 3]
+
+
+def add_error(pred: np.ndarray, gt: np.ndarray, model_pts: np.ndarray) -> float:
+    """ADD: mean distance between the model points under the predicted and
+    the true pose (non-symmetric objects)."""
+    return float(np.linalg.norm(_transform(pred, model_pts) - _transform(gt, model_pts), axis=1).mean())
 
 
 def adi_error(pred: np.ndarray, gt: np.ndarray, model_pts: np.ndarray) -> float:

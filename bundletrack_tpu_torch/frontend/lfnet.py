@@ -1,0 +1,389 @@
+"""The LF-Net keypoint frontend in PyTorch: detector + descriptor, NCHW.
+
+Counterpart of bundletrack_tpu/frontend/lfnet.py (reference:
+lf-net-release/models/mso_resnet_detector.py get_model, inference.py
+build_multi_scale_deep_detector_3DNMS and build_patch_extraction,
+models/simple_desc.py get_model).  It runs the trained weights the repo
+ships in checkpoints/lfnet_params.npz, which hold the JAX package's Flax
+parameters; `lfnet_state_dict_from_flax` carries them over.
+
+What follows the Flax module exactly, because the checkpoint depends on it:
+- every conv pads "SAME": (1, 1) for the stride-1 3x3 convs and (0, 1),
+  nothing before and one pixel after, for the stride-2 descriptor convs on
+  even sizes;
+- GroupNorm(1) has epsilon 1e-6 and takes the variance as E[x^2] - E[x]^2,
+  in f32;
+- with `bf16` the conv path runs in bf16 (inputs, kernels and bias cast;
+  the bias added after the product, in bf16), the norms in f32, the
+  residual add in bf16, the per-scale resize in bf16, the score maps back
+  in f32, and the orientation conv in f32;
+- the descriptor flattens its [C, 4, 4] maps, while Flax flattened [4, 4, C]:
+  the carry-over reorders fc1's input rows to match.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from bundletrack_tpu_torch.config import FrontendConfig
+from bundletrack_tpu_torch.frontend.detector_ops import (
+    end_of_frame_mask,
+    instance_norm,
+    non_max_suppression_mask,
+    soft_argmax_2d,
+    soft_max_and_argmax_1d,
+    soft_nms_3d,
+    top_k_keypoints,
+    transformer_crop,
+)
+from bundletrack_tpu_torch.frontend.interface import FrontendOutput
+from bundletrack_tpu_torch.ops.resize import resize_bilinear
+from bundletrack_tpu_torch.utils import params_io
+
+
+def _same_pads(size: int, k: int, stride: int):
+    """(before, after) zero padding of XLA's "SAME" on one axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """Flax nn.Conv with "SAME" padding, computed in `dtype`."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.k, self.stride, self.dtype = k, stride, dtype
+
+    def forward(self, x):
+        (th, bh), (tw, bw) = (_same_pads(n, self.k, self.stride) for n in x.shape[-2:])
+        x = x.to(self.dtype)
+        if (th, tw) == (bh, bw):
+            y = F.conv2d(x, self.weight.to(self.dtype), stride=self.stride, padding=(th, tw))
+        else:
+            y = F.conv2d(F.pad(x, (tw, bw, th, bh)), self.weight.to(self.dtype), stride=self.stride)
+        return y + self.bias.to(self.dtype)[None, :, None, None]
+
+
+class Dense(nn.Module):
+    """Flax nn.Dense computed in `dtype`; the weight is [out, in]."""
+
+    def __init__(self, cin: int, cout: int, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype)) + self.bias.to(self.dtype)
+
+
+def _channel_shape(x):
+    return [1, x.shape[1]] + [1] * (x.ndim - 2)
+
+
+class GroupNorm1(nn.Module):
+    """Flax nn.GroupNorm(num_groups=1, dtype=f32): over every axis but the
+    batch, epsilon 1e-6, variance E[x^2] - E[x]^2 clipped at 0, in f32."""
+
+    def __init__(self, c: int, eps: float = 1e-6):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.eps = eps
+
+    def forward(self, x):
+        x = x.to(torch.float32)
+        dims = tuple(range(1, x.ndim))
+        mu = torch.mean(x, dim=dims, keepdim=True)
+        mu2 = torch.mean(x * x, dim=dims, keepdim=True)
+        var = torch.clamp(mu2 - mu * mu, min=0.0)
+        shape = _channel_shape(x)
+        mul = torch.rsqrt(var + self.eps) * self.scale.view(shape)
+        return (x - mu) * mul + self.bias.view(shape)
+
+
+class FrozenBN(nn.Module):
+    """Inference-mode batch norm with ported running statistics (reference
+    common/tf_layer_utils.py:130, epsilon 1e-3), in f32."""
+
+    def __init__(self, c: int, eps: float = 1e-3):
+        super().__init__()
+        self.mean = nn.Parameter(torch.zeros(c))
+        self.var = nn.Parameter(torch.ones(c))
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.eps = eps
+
+    def forward(self, x):
+        shape = _channel_shape(x)
+        x = x.to(torch.float32)
+        return ((x - self.mean.view(shape)) * torch.rsqrt(self.var.view(shape) + self.eps)
+                * self.scale.view(shape) + self.bias.view(shape))
+
+
+def _make_norm(kind: str, c: int) -> nn.Module:
+    return FrozenBN(c) if kind == "bn" else GroupNorm1(c)
+
+
+class ResBlock(nn.Module):
+    """Pre-activation residual block (reference building_block)."""
+
+    def __init__(self, channels: int, ksize: int = 3, norm: str = "gn", dtype=torch.float32):
+        super().__init__()
+        self.pre_norm = _make_norm(norm, channels)
+        self.conv1 = Conv(channels, channels, ksize, dtype=dtype)
+        self.mid_norm = _make_norm(norm, channels)
+        self.conv2 = Conv(channels, channels, ksize, dtype=dtype)
+
+    def forward(self, x):
+        h = self.conv1(F.relu(self.pre_norm(x)))
+        h = self.conv2(F.relu(self.mid_norm(h)))
+        return h + x.to(h.dtype)
+
+
+class MSODetector(nn.Module):
+    """Multi-Scale-Orientation detector (reference get_model)."""
+
+    def __init__(self, num_blocks=3, channels=16, ksize=3, num_scales=5, min_scale=0.5,
+                 max_scale=2.0, norm="gn", dtype=torch.float32):
+        super().__init__()
+        self.num_scales, self.min_scale, self.max_scale = num_scales, min_scale, max_scale
+        self.dtype = dtype
+        self.init_conv = Conv(1, channels, ksize, dtype=dtype)
+        for i in range(num_blocks):
+            setattr(self, f"block_{i + 1}", ResBlock(channels, ksize, norm, dtype))
+        self.num_blocks = num_blocks
+        self.final_norm = _make_norm(norm, channels)
+        for i in range(num_scales):
+            setattr(self, f"score_conv_{i}", Conv(channels, 1, ksize, dtype=dtype))
+        self.ori_conv = Conv(channels, 2, ksize, dtype=torch.float32)  # no dtype in Flax: f32
+        # the scale values on the module's device: uploading them per call
+        # from host memory would synchronise
+        self.register_buffer("scale_values", torch.from_numpy(self.scale_factors()), persistent=False)
+
+    def scale_factors(self) -> np.ndarray:
+        """Host constants, float32, as the JAX package computes them."""
+        if self.num_scales == 1:
+            return np.array([1.0], np.float32)
+        return np.exp(
+            np.linspace(np.log(self.max_scale), np.log(self.min_scale), self.num_scales)
+        ).astype(np.float32)
+
+    def forward(self, photos):  # [B, 1, H, W] f32
+        H, W = photos.shape[-2:]
+        x = self.init_conv(photos)
+        for i in range(self.num_blocks):
+            x = getattr(self, f"block_{i + 1}")(x)
+        feat_maps = F.relu(self.final_norm(x))  # f32
+        # the per-scale resize and score conv run in the compute dtype
+        feat_rs = feat_maps.to(self.dtype)
+        score_maps = []
+        for i, s in enumerate(self.scale_factors()):
+            inv_s = 1.0 / float(s)
+            fh, fw = int(H * inv_s + 0.5), int(W * inv_s + 0.5)
+            rs = resize_bilinear(feat_rs, (fh, fw))
+            score_maps.append(getattr(self, f"score_conv_{i}")(rs).to(torch.float32))
+        ori = self.ori_conv(feat_maps)
+        ori = ori / torch.clamp(torch.linalg.vector_norm(ori, dim=1, keepdim=True), min=1e-6)
+        return score_maps, ori, feat_maps
+
+
+class SimpleDesc(nn.Module):
+    """Patch descriptor (reference simple_desc.py get_model)."""
+
+    def __init__(self, out_dim=256, init_channels=64, num_layers=3, ksize=3, norm="gn",
+                 patch_size=32, dtype=torch.float32):
+        super().__init__()
+        cin, side = 1, patch_size
+        for i in range(num_layers):
+            cout = init_channels * (2 ** i)
+            setattr(self, f"conv{i + 1}", Conv(cin, cout, ksize, stride=2, dtype=dtype))
+            setattr(self, f"norm{i + 1}", _make_norm(norm, cout))
+            cin, side = cout, -(-side // 2)
+        self.num_layers = num_layers
+        self.fc1 = Dense(cin * side * side, 512, dtype=dtype)
+        self.fc1_norm = _make_norm(norm, 512)
+        self.fc2 = Dense(512, out_dim, dtype=dtype)
+
+    def forward(self, patches):  # [N, 1, P, P]
+        x = patches
+        for i in range(self.num_layers):
+            x = getattr(self, f"conv{i + 1}")(x)
+            x = F.relu(getattr(self, f"norm{i + 1}")(x))
+        x = x.reshape(x.shape[0], -1)  # (c, h, w) order: fc1's rows were reordered to it
+        x = F.relu(self.fc1_norm(self.fc1(x)))
+        x = self.fc2(x).to(torch.float32)
+        return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-6)
+
+
+class LFNet(nn.Module):
+    """Detector -> 3D soft NMS -> top-K -> oriented patches -> descriptor
+    (reference build_multi_scale_deep_detector_3DNMS + build_patch_extraction)."""
+
+    def __init__(self, cfg: FrontendConfig):
+        super().__init__()
+        self.cfg = c = cfg
+        dtype = torch.bfloat16 if c.bf16 else torch.float32
+        self.detector = MSODetector(
+            num_blocks=c.net_block, channels=c.net_channel, ksize=c.conv_ksize,
+            num_scales=c.net_num_scales, min_scale=c.net_min_scale,
+            max_scale=c.net_max_scale, norm=c.norm, dtype=dtype,
+        )
+        self.descriptor = SimpleDesc(
+            out_dim=c.desc_dim, init_channels=c.desc_net_channel, num_layers=c.desc_net_depth,
+            ksize=c.desc_conv_ksize, norm=c.norm, patch_size=c.patch_size, dtype=dtype,
+        )
+
+    def forward(self, photos):
+        """photos [B, 1, H, W] gray in [0, 1] -> FrontendOutput with
+        kpts_uv [B, K, 2], scores [B, K], desc [B, K, D], valid [B, K]."""
+        c = self.cfg
+        B, _, H, W = photos.shape
+        dev = photos.device
+        photos_n = instance_norm(photos)
+        score_maps, ori_maps, _ = self.detector(photos_n)
+        scale_factors = self.detector.scale_values
+
+        scale_logits = torch.cat([resize_bilinear(instance_norm(sm), (H, W)) for sm in score_maps], dim=1)
+        heat = soft_nms_3d(scale_logits, ksize=c.sm_ksize, com_strength=c.com_strength)
+        if c.soft_scale:
+            max_heat, max_scale = soft_max_and_argmax_1d(
+                heat, scale_factors, dim=1, com1=c.score_com_strength, com2=c.scale_com_strength,
+            )
+            max_heat = max_heat[:, None]
+        else:
+            max_heat = torch.amax(heat, dim=1, keepdim=True)
+            max_scale = scale_factors[torch.argmax(heat, dim=1)]
+
+        pad = (c.net_block * 2 + 2) * (c.conv_ksize // 2)
+        max_heat = max_heat * end_of_frame_mask(H, W, pad, device=dev)
+        nms = non_max_suppression_mask(max_heat, c.nms_thresh, c.nms_ksize)
+        scores = max_heat * nms.to(max_heat.dtype) * end_of_frame_mask(H, W, c.crop_radius, device=dev)
+
+        kpts, kp_scores, valid = top_k_keypoints(scores, c.top_k)  # [B, K, 2]
+        batch_inds = torch.arange(B, device=dev).repeat_interleave(c.top_k)
+        kpts_flat = kpts.reshape(-1, 2)
+        xi = torch.clamp(kpts_flat[:, 0].to(torch.int64), 0, W - 1)
+        yi = torch.clamp(kpts_flat[:, 1].to(torch.int64), 0, H - 1)
+        kp_scale = max_scale[batch_inds, yi, xi]
+        kp_ori = ori_maps[batch_inds, :, yi, xi]
+
+        if c.soft_kpts:
+            local = transformer_crop(max_heat, c.kp_loc_size, batch_inds, kpts_flat, kpts_scale=kp_scale)
+            dxdy = soft_argmax_2d(local, do_softmax=c.do_softmax_kp_refine, com=c.kp_com_strength)
+            kpts_flat = kpts_flat + dxdy * kp_scale[:, None] * (c.kp_loc_size / 2.0)
+
+        patches = transformer_crop(photos_n, c.patch_size, batch_inds, kpts_flat,
+                                   kpts_scale=kp_scale, kpts_ori=kp_ori)
+        desc = self.descriptor(patches)
+        return FrontendOutput(
+            kpts_uv=kpts_flat.reshape(B, c.top_k, 2),
+            scores=kp_scores,
+            desc=desc.reshape(B, c.top_k, -1),
+            valid=valid,
+        )
+
+
+class LFNetApply(nn.Module):
+    """The frontend contract of the tracker step: one crop [S, S, 1] in,
+    one FrontendOutput in crop coordinates out.  The forward runs under
+    torch.inference_mode(); `.to(device)` moves the weights."""
+
+    def __init__(self, net: LFNet):
+        super().__init__()
+        self.net = net.eval()
+
+    def forward(self, crop):
+        with torch.inference_mode():
+            out = self.net(crop.permute(2, 0, 1)[None])
+        return FrontendOutput(kpts_uv=out.kpts_uv[0], scores=out.scores[0],
+                              desc=out.desc[0], valid=out.valid[0])
+
+
+def make_lfnet_apply(cfg: FrontendConfig, params) -> LFNetApply:
+    """The single-image apply module for the state dict `params`."""
+    net = LFNet(cfg)
+    net.load_state_dict(params)
+    return LFNetApply(net)
+
+
+def init_lfnet(cfg: FrontendConfig, seed: int = 0):
+    """(model, state dict) with seeded random weights: conv and dense
+    kernels lecun-normal, biases 0, norms identity, the orientation head
+    (cos, sin) = (1, 0), as the Flax initialisers give."""
+    model = LFNet(cfg)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("weight"):
+                fan_in = math.prod(p.shape[1:])
+                p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(fan_in))
+        model.detector.ori_conv.weight.zero_()
+        model.detector.ori_conv.bias.copy_(torch.tensor([1.0, 0.0]))
+    return model, model.state_dict()
+
+
+# ---- carrying the Flax parameters over --------------------------------------
+
+
+def _is_kernel(key: str, t: torch.Tensor) -> bool:
+    return key.endswith(".weight") and t.ndim in (2, 4)
+
+
+def flax_param_shapes(model: nn.Module) -> dict:
+    """{Flax flat name: Flax shape} of every parameter of `model`: what a
+    checkpoint for it must hold."""
+    shapes = {}
+    for key, t in model.state_dict().items():
+        module, leaf = key.rsplit(".", 1)
+        name = module.replace(".", "/") + "/" + ("kernel" if _is_kernel(key, t) else leaf)
+        s = tuple(t.shape)
+        shapes[name] = (s[2], s[3], s[1], s[0]) if t.ndim == 4 else (s[::-1] if t.ndim == 2 else s)
+    return shapes
+
+
+def lfnet_state_dict_from_flax(flat_params) -> dict:
+    """The port's state dict from the JAX package's flat parameters
+    {"detector/init_conv/kernel": array, ...} (numpy arrays).
+
+    Conv kernels HWIO -> OIHW; dense kernels [in, out] -> [out, in];
+    descriptor/fc1's input rows go from Flax's (h, w, c) flatten order to
+    torch's (c, h, w)."""
+    convs = sorted((k for k in flat_params if k.startswith("descriptor/conv") and k.endswith("/kernel")),
+                   key=lambda k: int(k.split("/")[1][len("conv"):]))
+    sd = {}
+    for name, a in flat_params.items():
+        a = np.asarray(a, np.float32)
+        module, leaf = name.rsplit("/", 1)
+        key = module.replace("/", ".") + "." + leaf
+        if leaf == "kernel":
+            key = module.replace("/", ".") + ".weight"
+            if a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            else:
+                if name == "descriptor/fc1/kernel":
+                    c = flat_params[convs[-1]].shape[-1]  # channels of the last descriptor conv
+                    side = math.isqrt(a.shape[0] // c)
+                    a = a.reshape(side, side, c, -1).transpose(2, 0, 1, 3).reshape(a.shape[0], -1)
+                a = a.T
+        sd[key] = torch.from_numpy(np.ascontiguousarray(a))
+    return sd
+
+
+def load_params_npz(path: str, cfg: FrontendConfig):
+    """(model, state dict) from an npz of the JAX package's LF-Net
+    parameters.  `cfg` must describe the architecture the checkpoint was
+    trained with; every name and shape is checked."""
+    model = LFNet(cfg)
+    flat = params_io.load_params_npz(path, flax_param_shapes(model))
+    sd = lfnet_state_dict_from_flax(flat)
+    model.load_state_dict(sd)
+    return model, sd

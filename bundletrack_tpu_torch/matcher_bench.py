@@ -38,9 +38,10 @@ import torch
 TRACKER_WARMUP, PROFILED = 5, 3
 
 
-def ba_table(seq, cfg, device):
+def ba_table(seq, cfg, device, lfnet_apply=None):
     """((desc [K,N,D], world [K,N,3], wnrm [K,N,3], valid [K,N]), (pair_i, pair_j) int32)
-    for the first K = cfg.bundle.max_ba_frames frames of `seq`."""
+    for the first K = cfg.bundle.max_ba_frames frames of `seq`, through the
+    frontend cfg.frontend.kind (LF-Net needs `lfnet_apply`)."""
     from bundletrack_tpu_torch.frontend.pipeline import extract_frame_features
     from bundletrack_tpu_torch.geometry.se3 import transform_normals, transform_points
     from bundletrack_tpu_torch.tracker.bundler import _normalize_obs, _preprocess
@@ -57,7 +58,8 @@ def ba_table(seq, cfg, device):
             K=intr,
         ))
         mask, pts_map, nrm_map, val_map, _, _ = _preprocess(obs, cfg)
-        feats.append(extract_frame_features(obs.gray, mask, pts_map, nrm_map, val_map, cfg.frontend))
+        feats.append(extract_frame_features(obs.gray, mask, pts_map, nrm_map, val_map, cfg.frontend,
+                                            lfnet_apply))
     desc, pts, nrm, valid = (torch.stack([getattr(ff, k) for ff in feats])
                              for k in ("desc", "pts", "normals", "valid"))
     poses = torch.as_tensor(np.linalg.inv(seq.ob_in_cam[:K_BA]), device=device)  # cam -> model

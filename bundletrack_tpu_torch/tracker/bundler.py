@@ -143,14 +143,17 @@ def _set_prev(state: TrackerState, feats: FrameFeatures, pose) -> TrackerState:
     )
 
 
-def make_track_frame(cfg: TrackerConfig, H: int, W: int):
+def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
     """Build the per-frame step for images of size H x W.
 
     step(state, obs, init_pose, phases=None) -> (state, TrackOutput).
     `phases` = (neighbour [3, n_rep], pairs [P, 3, n_rep]) RANSAC phases;
-    when None they are drawn from `state.rng`.
+    when None they are drawn from `state.rng`.  `lfnet_apply` is the LF-Net
+    frontend (frontend/lfnet.make_lfnet_apply), needed when
+    cfg.frontend.kind is "lfnet"; its descriptors are cfg.frontend.desc_dim
+    wide.
     """
-    if cfg.frontend.desc_dim != 256:
+    if cfg.frontend.kind == "classical" and cfg.frontend.desc_dim != 256:
         raise ValueError("the classical frontend makes 256-d descriptors (16x16 patches)")
     K_BA = cfg.bundle.max_ba_frames
     n_pool_sel = K_BA - 1
@@ -220,7 +223,8 @@ def make_track_frame(cfg: TrackerConfig, H: int, W: int):
         dev = state.kf_pose.device
         obs = _normalize_obs(obs)
         mask, pts_map, nrm_map, val_map, fd, K_low = _preprocess(obs, cfg)
-        feats = extract_frame_features(obs.gray, mask, pts_map, nrm_map, val_map, cfg.frontend)
+        feats = extract_frame_features(obs.gray, mask, pts_map, nrm_map, val_map, cfg.frontend,
+                                       lfnet_apply)
         n_feat = torch.sum(feats.valid)
         roi_ok = torch.sum(mask) > 100  # the reference FAILs on a tiny ROI
         i32 = dict(dtype=torch.int32, device=dev)

@@ -33,13 +33,20 @@ def _upload(a: np.ndarray, device) -> torch.Tensor:
 
 
 class Tracker:
-    """Single-stream tracker with the reference's per-frame API."""
+    """Single-stream tracker with the reference's per-frame API.
 
-    def __init__(self, cfg: TrackerConfig, H: int, W: int, device=None, seed: int = 0):
+    `lfnet_apply` is the LF-Net frontend (frontend/lfnet.make_lfnet_apply)
+    for cfg.frontend.kind "lfnet"; a module's weights move to the tracker's
+    device."""
+
+    def __init__(self, cfg: TrackerConfig, H: int, W: int, lfnet_apply=None, device=None,
+                 seed: int = 0):
         self.cfg = cfg
         self.H, self.W = H, W
         self.device = resolve_device(device)
-        self._step = make_track_frame(cfg, H, W)
+        if isinstance(lfnet_apply, torch.nn.Module):
+            lfnet_apply = lfnet_apply.to(self.device)
+        self._step = make_track_frame(cfg, H, W, lfnet_apply)
         self.state: TrackerState = init_tracker_state(cfg, H, W, self.device, seed)
         self.outputs = []
 
@@ -82,11 +89,12 @@ class Tracker:
         )
 
 
-def track_sequence(cfg: TrackerConfig, seq, init_pose=None, device=None, seed: int = 0):
+def track_sequence(cfg: TrackerConfig, seq, init_pose=None, lfnet_apply=None, device=None,
+                   seed: int = 0):
     """Track a SyntheticSequence-like object; returns (ob_in_cam [F,4,4],
     statuses [F], tracker)."""
     F, H, W = seq.gray.shape
-    tracker = Tracker(cfg, H, W, device=device, seed=seed)
+    tracker = Tracker(cfg, H, W, lfnet_apply=lfnet_apply, device=device, seed=seed)
     if init_pose is None:
         init_pose = np.linalg.inv(seq.ob_in_cam[0])
     poses, statuses = [], []

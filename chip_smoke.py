@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, and builds every CUDA kernel of
-   the path from bundletrack_tpu_torch/csrc/ (one nvcc per source, in
+   the paths from bundletrack_tpu_torch/csrc/ (one nvcc per source, in
    parallel).
 2. Kernel phase: on the BA table that the tracker builds at full width
    (K=16 frames of N=512 keypoints, D=256, all P=120 pairs) it calls the
    fused matcher's table-form wrapper on card tensors and holds it against
-   its plain PyTorch version on the same inputs, on four input sets —
+   its plain PyTorch version on the same inputs, on five input sets —
    keypoints of rendered 480x640 frames, the same with every column gated
-   out, with half the keypoints invalid, and with exact ties — and times
-   both with CUDA events (median of 25 runs after warm-up), beside the dot
-   alone in torch.bmm as a yardstick.  The bound is the largest of three
-   terms: bytes, bf16 products and the epilogue's f32 instructions.
+   out, with half the keypoints invalid, with exact ties, and the table the
+   LF-Net frontend makes on the same frames — and times both with CUDA
+   events (median of 25 runs after warm-up), beside the dot alone in
+   torch.bmm as a yardstick.  The bound is the largest of three terms:
+   bytes, bf16 products and the epilogue's f32 instructions.
 3. Tracker phase: tracks a rendered 480x640 sequence with the default
-   TrackerConfig (max_ba_frames=16 -> 120 BA pairs, M=256, 2000 RANSAC
-   trials) and holds every frame to the pose bars of the test suite; the
-   matcher's launch count must equal the number of tracked frames.
-4. Prints one JSON line describing every kernel, the card's line, and as
+   TrackerConfig (classical frontend, max_ba_frames=16 -> 120 BA pairs,
+   M=256, 2000 RANSAC trials) and holds every frame to the pose bars of the
+   test suite; the matcher's launch count must equal the number of tracked
+   frames.
+4. LF-Net forward alone at 400x400 in bf16 with the shipped weights
+   (checkpoints/lfnet_params.npz), CUDA events, median of 25 after warm-up.
+5. CLI phase: writes the same 20 frames as a YCBInEOAT directory, writes a
+   reference-format config at the default widths, runs
+   `apps.run_tracking --frontend lfnet` on the card, scores the pose files
+   with `apps.eval_ycbineoat` and holds them to the bars of
+   tests/test_e2e_parity.py (ADD-S AUC > 90, ADD AUC > 80); the matcher's
+   launch count must equal the number of tracked frames.
+6. Prints one JSON line describing every kernel, the card's line, and as
    its last line {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and the last line is not
@@ -30,7 +40,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -39,7 +48,8 @@ import numpy as np
 
 K_BA, P_PAIRS, N_KPTS, D_DESC = 16, 120, 512, 256
 NUM_FRAMES = 20
-TIMED_RUNS = 25
+LFNET_CKPT = "checkpoints/lfnet_params.npz"  # a relative path: the app resolves it against the repo root
+CLI_ADDS_AUC_MIN, CLI_ADD_AUC_MIN = 90.0, 80.0  # tests/test_e2e_parity.py
 DIST_ATOL = 1e-4  # the bf16-product dot summed in another order: ~1e-6 on O(1) distances
 # The gate is bit-identical and the kernel deterministic, so `mutual` may
 # differ only where a column minimum is a near tie (a dist difference of
@@ -73,29 +83,14 @@ def build_kernels():
     log(f"built {len(paths)} kernel source(s) in {time.perf_counter() - t0:.1f} s: {sources}")
 
 
-def cuda_median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def kernel_inputs(table):
-    """The four input sets on the BA table: as rendered; every column gated
-    out (frames 10 m apart); the upper half of every frame's keypoints
-    invalid (A side and B side); and exact ties (descriptors in multiples of
+def kernel_inputs(table, lfnet_table):
+    """The five input sets: the classical BA table as rendered; every column
+    gated out (frames 10 m apart); the upper half of every frame's keypoints
+    invalid (A side and B side); exact ties (descriptors in multiples of
     1/64, so the dot is exact in any sum order, and keypoint 2m+1 a copy of
-    keypoint 2m, so each row ties between 2m and 2m+1)."""
+    keypoint 2m, so each row ties between 2m and 2m+1); and the BA table of
+    LF-Net keypoints on the same frames (unit-norm learned descriptors, so
+    distances lie in [0, 4])."""
     import torch
 
     desc, world, wnrm, valid = table
@@ -111,6 +106,7 @@ def kernel_inputs(table):
         "all_gated": (desc, far, wnrm, valid),
         "half_invalid": (desc, world, wnrm, half),
         "exact_ties": tuple(ties),
+        "lfnet": lfnet_table,
     }
 
 
@@ -152,27 +148,33 @@ def check_kernel(name, got, ref) -> float:
             raise AssertionError("exact_ties: the kernel differs from the plain version")
         if not bool((bb[has_k] % 2 == 0).all()):
             raise AssertionError("exact_ties: a tie did not go to the first index")
-    if name in ("rendered", "half_invalid", "exact_ties") and int(mm.sum()) < 1000:
+    if name in ("rendered", "half_invalid", "exact_ties", "lfnet") and int(mm.sum()) < 1000:
         raise AssertionError(f"{name}: too few mutual matches")
     return err
 
 
-def kernel_phase(seq, cfg, device) -> dict:
+def kernel_phase(seq, cfg, device, lf_cfg, lfnet) -> dict:
     import torch
 
+    from bundletrack_tpu_torch.cardrun import cuda_median_ms
     from bundletrack_tpu_torch.kernels import matching as km
     from bundletrack_tpu_torch.matcher_bench import ba_table
 
     table, (pi, pj) = ba_table(seq, cfg, device)
+    lfnet_table, _ = ba_table(seq, lf_cfg, device, lfnet)
     desc = table[0]
     K, N, D = desc.shape
     P = len(pi)
-    assert (K, P, N, D) == (K_BA, P_PAIRS, N_KPTS, D_DESC), (K, P, N, D)
+    for t in (table, lfnet_table):
+        if (t[0].shape[0], P, t[0].shape[1], t[0].shape[2]) != (K_BA, P_PAIRS, N_KPTS, D_DESC):
+            raise AssertionError(f"BA table shape {tuple(t[0].shape)}, P={P}")
+    log(f"lfnet BA table: {int(lfnet_table[3].sum())} valid keypoints over {K} frames "
+        f"(classical {int(table[3].sum())})")
     fc = cfg.feature_corres
     gates = dict(max_dist=fc.max_dist_no_neighbor, max_normal_deg=fc.max_normal_no_neighbor)
 
     max_err = 0.0
-    for name, args in kernel_inputs(table).items():
+    for name, args in kernel_inputs(table, lfnet_table).items():
         got = km.fused_mutual_match_pairs(*args, pi, pj, **gates)
         ref = km.fused_mutual_match_pairs_reference(*args, pi, pj, **gates)
         torch.cuda.synchronize()
@@ -223,7 +225,7 @@ def tracker_phase(seq, cfg, card: str) -> int:
 
     tracker = Tracker(cfg, H, W)  # the card, by default
     init_pose = np.linalg.inv(seq.ob_in_cam[0])
-    km.launches = 0  # count only the main path's launches
+    km.launches = 0  # count only this path's launches
     poses, statuses, frame_ms = [], [], []
     for _, out, ms in timed_frames(tracker, seq, range(len(seq.gray)), init_pose):
         poses.append(out.ob_in_cam.cpu().numpy())
@@ -255,6 +257,124 @@ def tracker_phase(seq, cfg, card: str) -> int:
     return launches
 
 
+def lfnet_forward_phase(seq, lf_cfg, lfnet, card: str) -> float:
+    """The LF-Net forward alone on the masked ROI crop of frame 0 at
+    input_size (400x400), CUDA events, median of 25 runs after warm-up."""
+    import torch
+
+    from bundletrack_tpu_torch.cardrun import TIMED_RUNS, cuda_median_ms, masked_crop
+
+    S = lf_cfg.frontend.input_size
+    crop = masked_crop(seq, 0, S)
+    out = lfnet(crop[..., None])
+    n_valid = int(out.valid.sum())
+    if not (bool(torch.isfinite(out.desc).all()) and n_valid > 0):
+        raise AssertionError("lfnet forward: non-finite descriptors or no valid keypoint")
+    ms = cuda_median_ms(lambda: lfnet(crop[..., None]))
+    dtype = "bf16" if lf_cfg.frontend.bf16 else "f32"
+    log(f"lfnet forward at {S}x{S} {dtype}, top_k {lf_cfg.frontend.top_k}: median {ms:.4f} ms "
+        f"over {TIMED_RUNS} runs, {n_valid} valid keypoints [{card}]")
+    return ms
+
+
+def write_config(root: str, data_dir: str, out_dir: str) -> str:
+    """A reference-format config at the default widths; the sequence length
+    is the one reduction."""
+    cfg = {
+        "data_dir": data_dir,
+        "mask_dir": os.path.join(data_dir, "masks"),
+        "debug_dir": out_dir,
+        "LOG": 0,
+        "bundle": {"num_iter_outter": 7, "max_BA_frames": 16},
+        "frontend": {"top_k": 512, "input_size": 400, "net_num_scales": 5, "bf16": True},
+        "ransac": {"max_iter": 2000},
+        "shapes": {"max_matches": 256},
+    }
+    import yaml
+
+    path = os.path.join(root, "config.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def cli_phase(seq, card: str) -> int:
+    import tempfile
+
+    import torch
+
+    from bundletrack_tpu_torch.apps import eval_ycbineoat, run_tracking
+    from bundletrack_tpu_torch.cardrun import WARMUP_FRAMES, steady_median
+    from bundletrack_tpu_torch.data.export import export_ycbineoat_sequence
+    from bundletrack_tpu_torch.eval.metrics import pose_errors
+    from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.tracker import driver
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        t0 = time.perf_counter()
+        data_dir = export_ycbineoat_sequence(seq, os.path.join(root, "cube"))
+        out_dir = os.path.join(root, "out")
+        cfg_path = write_config(root, data_dir, out_dir)
+        log(f"cli: exported {len(seq.gray)} frames to a YCBInEOAT directory in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # time each tracked frame of the app with CUDA events
+        frame_ms = []
+        process_frame = driver.Tracker.process_frame
+
+        def timed_process_frame(self, *args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = process_frame(self, *args, **kwargs)
+            end.record()
+            end.synchronize()
+            frame_ms.append(start.elapsed_time(end))
+            return out
+
+        driver.Tracker.process_frame = timed_process_frame
+        try:
+            km.launches = 0  # count only this path's launches
+            t0 = time.perf_counter()
+            tracker = run_tracking.main([cfg_path, "--frontend", "lfnet", "--lfnet-ckpt", LFNET_CKPT])
+            chain_s = time.perf_counter() - t0
+            launches = km.launches
+        finally:
+            driver.Tracker.process_frame = process_frame
+
+        pose_dir = os.path.join(out_dir, "poses")
+        gt_dir = os.path.join(data_dir, "annotated_poses")
+        ids = sorted(os.path.splitext(f)[0] for f in os.listdir(gt_dir))
+        if sorted(os.path.splitext(f)[0] for f in os.listdir(pose_dir)) != ids or len(ids) != len(seq.gray):
+            raise AssertionError(f"cli: pose files {sorted(os.listdir(pose_dir))} != frames {ids}")
+        worst_rot = worst_trans = 0.0
+        for f, fid in enumerate(ids):
+            pose = np.loadtxt(os.path.join(pose_dir, fid + ".txt"))
+            if pose.shape != (4, 4) or not np.all(np.isfinite(pose)):
+                raise AssertionError(f"cli: pose {fid} is not a finite 4x4")
+            rot, trans = pose_errors(pose, seq.ob_in_cam[f])
+            worst_rot, worst_trans = max(worst_rot, rot), max(worst_trans, trans)
+        model_pts = eval_ycbineoat.load_model_points(os.path.join(data_dir, "model", "points.xyz"))
+        res = eval_ycbineoat.evaluate(pose_dir, gt_dir, model_pts)
+
+    statuses = [int(o.status) for o in tracker.outputs]
+    tracked = len(statuses) - 1
+    med = steady_median(frame_ms)
+    log(f"cli: statuses {statuses}")
+    log(f"cli: lfnet chain at default widths, {len(statuses)} frames: {statuses.count(0)} OK, "
+        f"worst rotation {worst_rot:.4f} deg, worst translation {worst_trans * 1e3:.3f} mm, "
+        f"ADD AUC {res['ADD_AUC']:.2f}, ADD-S AUC {res['ADDS_AUC']:.2f}, missing {res['missing']}")
+    log(f"cli: median tracked frame {med:.2f} ms (CUDA events around process_frame, frames "
+        f"{WARMUP_FRAMES}..{len(frame_ms) - 1}), first frame {frame_ms[0]:.1f} ms, whole app "
+        f"{chain_s:.1f} s ({1e3 * chain_s / len(statuses):.1f} ms per frame with IO and start-up), "
+        f"matcher launches {launches} [{card}]")
+    if launches != tracked:
+        raise AssertionError(f"cli: matcher launches {launches} != tracked frames {tracked}")
+    if res["missing"] or res["ADDS_AUC"] <= CLI_ADDS_AUC_MIN or res["ADD_AUC"] <= CLI_ADD_AUC_MIN:
+        raise AssertionError(f"cli: pose bars missed (ADD-S AUC > {CLI_ADDS_AUC_MIN}, "
+                             f"ADD AUC > {CLI_ADD_AUC_MIN}): {res}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -275,8 +395,17 @@ def main() -> int:
     log(f"rendered {NUM_FRAMES} frames at {H}x{W} in {time.perf_counter() - t0:.1f} s")
     device = torch.device("cuda")
 
-    kernel = kernel_phase(seq, cfg, device)
-    kernel["launches"] = tracker_phase(seq, cfg, card)
+    from bundletrack_tpu_torch.cardrun import shipped_lfnet, with_lfnet
+
+    lf_cfg = with_lfnet(cfg)
+    lfnet = shipped_lfnet(lf_cfg)
+
+    kernel = kernel_phase(seq, cfg, device, lf_cfg, lfnet)
+    classical_launches = tracker_phase(seq, cfg, card)
+    lfnet_forward_phase(seq, lf_cfg, lfnet, card)
+    cli_launches = cli_phase(seq, card)
+    kernel["launches"] = classical_launches + cli_launches
+    log(f"matcher launches: classical tracker phase {classical_launches}, lfnet CLI phase {cli_launches}")
 
     log(json.dumps({"kernels": [kernel]}))
     log(card)

@@ -1,8 +1,8 @@
 """The port stands alone: it imports torch and never jax, flax or the JAX package.
 
 Checked two ways: statically, on every import statement of the port and of
-chip_smoke.py; and at run time, in a fresh interpreter that imports the port
-and tracks two frames on the CPU.
+chip_smoke.py; and at run time, in a fresh interpreter that imports the port,
+tracks two frames on the CPU with each frontend, and runs the CLI chain.
 """
 
 import ast
@@ -58,11 +58,37 @@ cfg = TrackerConfig(bundle=BundleConfig(max_ba_frames=3), keyframe=KeyframeConfi
 seq = render_synthetic_sequence(num_frames=2, H=60, W=80)
 poses, statuses, _ = track_sequence(cfg, seq, device="cpu")
 assert poses.shape == (2, 4, 4) and np.all(np.isfinite(poses)), poses
+import os, tempfile, yaml
+from bundletrack_tpu_torch.apps import eval_ycbineoat, run_tracking
+from bundletrack_tpu_torch.data.export import export_ycbineoat_sequence
+from bundletrack_tpu_torch.frontend import lfnet
+lf = FrontendConfig(kind="lfnet", top_k=64, input_size=32, bf16=False)
+_, params = lfnet.load_params_npz("checkpoints/lfnet_params.npz", lf)
+poses, _, _ = track_sequence(cfg.replace(frontend=lf), seq, lfnet_apply=lfnet.make_lfnet_apply(lf, params),
+                             device="cpu")
+assert np.all(np.isfinite(poses)), poses
+with tempfile.TemporaryDirectory() as root:
+    data = export_ycbineoat_sequence(seq, os.path.join(root, "seq"))
+    with open(os.path.join(root, "c.yml"), "w") as f:
+        yaml.safe_dump({"data_dir": data, "debug_dir": os.path.join(root, "out"), "frontend": {"top_k": 64},
+                        "bundle": {"max_BA_frames": 3}, "keyframe": {"pool_size": 4},
+                        "ransac": {"max_iter": 128}, "shapes": {"max_matches": 64}}, f)
+    run_tracking.main([os.path.join(root, "c.yml"), "--device", "cpu"])
+    eval_ycbineoat.evaluate(os.path.join(root, "out", "poses"), os.path.join(data, "annotated_poses"),
+                            eval_ycbineoat.load_model_points(os.path.join(data, "model", "points.xyz")))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax") or m == "bundletrack_tpu"
              or m.startswith("bundletrack_tpu."))
 print("FORBIDDEN", bad)
 """
+
+
+def test_scan_covers_every_module_of_the_slices():
+    scanned = {os.path.relpath(p, REPO) for p in _port_files()}
+    for module in ("frontend/lfnet.py", "frontend/detector_ops.py", "ops/resize.py", "utils/params_io.py",
+                   "data/native_io.py", "data/ycbineoat.py", "data/export.py", "apps/run_tracking.py",
+                   "apps/eval_ycbineoat.py", "tracker/bundler.py", "kernels/matching.py"):
+        assert os.path.join("bundletrack_tpu_torch", module) in scanned, module
 
 
 def test_running_the_port_loads_no_jax():
