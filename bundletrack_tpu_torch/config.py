@@ -160,8 +160,8 @@ class FrontendConfig:
 
 @_frozen
 class SegmentationConfig:
-    """Video-object-segmentation settings.  The port takes masks as given;
-    only `nocs_mask_fill` is read, and it is not ported yet."""
+    """Mask settings: the NOCS mask fill the tracker's preprocess reads,
+    and the VOS mask propagator's settings (models/vos.py)."""
 
     seg_dilation_iter: int = 0  # parsed, not used (the reference always dilates once)
     nocs_mask_fill: bool = False
@@ -172,8 +172,17 @@ class SegmentationConfig:
     temperature: float = 0.05
     range_: int = 40
     downscale: int = 8
-    history_cap: int = 48
-    anchor_first: bool = True
+    history_cap: int = 48  # feature-ring capacity; >= range_, or older wanted ages snap to the oldest frame
+    anchor_first: bool = True  # keep frame 0 (the given mask) as the last, sparse reference
+
+    def long_range(self, num_frames: int) -> "SegmentationConfig":
+        """Widen the sparse-reference window to cover a long sequence: range_
+        up to 100 frames, and a ring large enough to hold it."""
+        rg = min(int(num_frames), 100)
+        if rg <= self.range_:
+            return self
+        cap = max(self.history_cap, rg + 28)
+        return dataclasses.replace(self, range_=rg, history_cap=cap)
 
 
 @_frozen
@@ -208,6 +217,18 @@ class TrackerConfig:
 
     def replace(self, **kw) -> "TrackerConfig":
         return dataclasses.replace(self, **kw)
+
+
+def nocs_config(**overrides) -> TrackerConfig:
+    """NOCS-REAL275 preset (reference: config_nocs.yml deltas vs ycbineoat)."""
+    cfg = TrackerConfig(
+        use_6pack_datalist=True,
+        bundle=BundleConfig(min_fm_edges_newframe=10),
+        feature_corres=FeatureCorresConfig(max_dist_neighbor=10000.0, max_normal_neighbor=180.0),
+        ransac=RansacConfig(inlier_dist=0.005, max_trans_neighbor=0.2, max_rot_deg_neighbor=25.0),
+        segmentation=SegmentationConfig(seg_dilation_iter=3, nocs_mask_fill=True),
+    )
+    return cfg.replace(**overrides) if overrides else cfg
 
 
 def ycbineoat_config(**overrides) -> TrackerConfig:

@@ -1,11 +1,12 @@
-"""Export a SyntheticSequence to disk in the reference YCBInEOAT layout.
+"""Export a SyntheticSequence to disk in the reference dataset layouts.
 
-The port's own copy of the YCBInEOAT part of bundletrack_tpu/data/export.py.
+The port's own copy of bundletrack_tpu/data/export.py.
 Lets the full CLI chain — config -> loader -> PNG IO ->
 tracker -> pose txt -> eval — run end-to-end against on-disk data in exactly
 the directory conventions the reference consumes (reference YCBInEOAT layout:
 src/DataLoader.cpp:289-384 — `cam_K.txt`, `rgb/<id>.png`, `depth/<id>.png`
-in millimeters, `masks/<id>.png`, `annotated_poses/<id>.txt`).  Host-side
+in millimeters, `masks/<id>.png`, `annotated_poses/<id>.txt`; NOCS layout:
+src/DataLoader.cpp:60-145).  Host-side
 numpy + the port's own PNG codec.
 """
 
@@ -72,3 +73,31 @@ def export_ycbineoat_sequence(
         cube_model_points(box_size), fmt="%.6f",
     )
     return out_dir
+
+
+def export_nocs_sequence(seq: SyntheticSequence, root_dir: str, scene_id: int = 1, box_size: float = 0.2):
+    """Write `seq` in NOCS-REAL275 layout; returns (scene_dir, mask_dir,
+    gt_dir, model_path).
+
+    Layout (reference src/DataLoader.cpp:60-243): `scene_<id>/` with
+    `<fid>_color.png` / `<fid>_depth.png` (16-bit mm); masks and GT
+    ob_in_cam poses live in separate dirs (the reference reads masks from
+    mask_dir and converts poses externally).  Adds cam_K.txt (a loader
+    extension; the real dataset uses the hardcoded REAL275 intrinsics).
+    """
+    scene = os.path.join(root_dir, f"scene_{scene_id}")
+    mask_dir = os.path.join(root_dir, "masks")
+    gt_dir = os.path.join(root_dir, "gt_poses")
+    for d in (scene, mask_dir, gt_dir):
+        os.makedirs(d, exist_ok=True)
+    np.savetxt(os.path.join(scene, "cam_K.txt"), seq.K, fmt="%.8f")
+    for f in range(seq.gray.shape[0]):
+        fid = f"{f:04d}"
+        rgb = np.repeat((seq.gray[f] * 255.0 + 0.5).astype(np.uint8)[..., None], 3, axis=-1)
+        write_png(os.path.join(scene, fid + "_color.png"), rgb)
+        write_png(os.path.join(scene, fid + "_depth.png"), (seq.depth[f] * 1000.0 + 0.5).astype(np.uint16))
+        write_png(os.path.join(mask_dir, fid + ".png"), (seq.mask[f] * 255).astype(np.uint8))
+        np.savetxt(os.path.join(gt_dir, fid + ".txt"), seq.ob_in_cam[f], fmt="%.8f")
+    model_path = os.path.join(root_dir, "points.xyz")
+    np.savetxt(model_path, cube_model_points(box_size), fmt="%.6f")
+    return scene, mask_dir, gt_dir, model_path

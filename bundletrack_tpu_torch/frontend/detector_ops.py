@@ -19,14 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from bundletrack_tpu_torch.ops.numerics import flush_denormals
 from bundletrack_tpu_torch.ops.topk import topk_stable
-
-
-_F32_TINY = float(torch.finfo(torch.float32).tiny)
-
-
-def _flush_denormals(x: torch.Tensor) -> torch.Tensor:
-    return torch.where(torch.abs(x) < _F32_TINY, torch.zeros_like(x), x)
 
 
 def instance_norm(x: torch.Tensor, dims=(2, 3), eps: float = 1e-3) -> torch.Tensor:
@@ -63,7 +57,7 @@ def soft_nms_3d(scale_logits: torch.Tensor, ksize: int, com_strength: float = 1.
     _check_odd(ksize)
     max_all_scales = torch.amax(scale_logits, dim=1, keepdim=True)
     max_maps = _window_max(max_all_scales, ksize)
-    exp_maps = _flush_denormals(torch.exp(com_strength * (scale_logits - max_maps)))
+    exp_maps = flush_denormals(torch.exp(com_strength * (scale_logits - max_maps)))
     sum_exp_scales = torch.sum(exp_maps, dim=1, keepdim=True)
     sum_ex = _window_sum(sum_exp_scales, ksize)
     return exp_maps / (sum_ex + 1e-6)
@@ -73,14 +67,14 @@ def soft_max_and_argmax_1d(x: torch.Tensor, index_values: torch.Tensor, dim: int
                            com1: float = 250.0, com2: float = 250.0):
     """Differentiable max and argmax along `dim` (reference det_tools:1707)."""
     mx = torch.amax(x, dim=dim, keepdim=True)
-    e1 = _flush_denormals(torch.exp(com1 * (x - mx)))
+    e1 = flush_denormals(torch.exp(com1 * (x - mx)))
     p1 = e1 / (torch.sum(e1, dim=dim, keepdim=True) + 1e-8)
-    e2 = _flush_denormals(torch.exp(com2 * (x - mx)))
+    e2 = flush_denormals(torch.exp(com2 * (x - mx)))
     p2 = e2 / (torch.sum(e2, dim=dim, keepdim=True) + 1e-8)
-    soft_max = torch.sum(_flush_denormals(x * p1), dim=dim)
+    soft_max = torch.sum(flush_denormals(x * p1), dim=dim)
     shape = [1] * x.ndim
     shape[dim] = -1
-    soft_arg = torch.sum(_flush_denormals(index_values.reshape(shape) * p2), dim=dim)
+    soft_arg = torch.sum(flush_denormals(index_values.reshape(shape) * p2), dim=dim)
     return soft_max, soft_arg
 
 
@@ -133,7 +127,7 @@ def soft_argmax_2d(patches: torch.Tensor, do_softmax: bool = True, com: float = 
     m = patches[:, 0]
     if do_softmax:
         mx = torch.amax(m, dim=(1, 2), keepdim=True)
-        e = _flush_denormals(torch.exp(com * (m - mx)))
+        e = flush_denormals(torch.exp(com * (m - mx)))
         m = e / (torch.sum(e, dim=(1, 2), keepdim=True) + 1e-8)
     dx = torch.sum(xs[None, None, :] * m, dim=(1, 2))
     dy = torch.sum(xs[None, :, None] * m, dim=(1, 2))

@@ -8,11 +8,8 @@ ships in checkpoints/lfnet_params.npz, which hold the JAX package's Flax
 parameters; `lfnet_state_dict_from_flax` carries them over.
 
 What follows the Flax module exactly, because the checkpoint depends on it:
-- every conv pads "SAME": (1, 1) for the stride-1 3x3 convs and (0, 1),
-  nothing before and one pixel after, for the stride-2 descriptor convs on
-  even sizes;
-- GroupNorm(1) has epsilon 1e-6 and takes the variance as E[x^2] - E[x]^2,
-  in f32;
+- every conv pads "SAME" and every norm is Flax's GroupNorm(1)
+  (utils/flax_layers.py);
 - with `bf16` the conv path runs in bf16 (inputs, kernels and bias cast;
   the bias added after the product, in bf16), the norms in f32, the
   residual add in bf16, the per-scale resize in bf16, the score maps back
@@ -44,70 +41,14 @@ from bundletrack_tpu_torch.frontend.detector_ops import (
 from bundletrack_tpu_torch.frontend.interface import FrontendOutput
 from bundletrack_tpu_torch.ops.resize import resize_bilinear
 from bundletrack_tpu_torch.utils import params_io
-
-
-def _same_pads(size: int, k: int, stride: int):
-    """(before, after) zero padding of XLA's "SAME" on one axis."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
-class Conv(nn.Module):
-    """Flax nn.Conv with "SAME" padding, computed in `dtype`."""
-
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, dtype=torch.float32):
-        super().__init__()
-        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
-        self.bias = nn.Parameter(torch.zeros(cout))
-        self.k, self.stride, self.dtype = k, stride, dtype
-
-    def forward(self, x):
-        (th, bh), (tw, bw) = (_same_pads(n, self.k, self.stride) for n in x.shape[-2:])
-        x = x.to(self.dtype)
-        if (th, tw) == (bh, bw):
-            y = F.conv2d(x, self.weight.to(self.dtype), stride=self.stride, padding=(th, tw))
-        else:
-            y = F.conv2d(F.pad(x, (tw, bw, th, bh)), self.weight.to(self.dtype), stride=self.stride)
-        return y + self.bias.to(self.dtype)[None, :, None, None]
-
-
-class Dense(nn.Module):
-    """Flax nn.Dense computed in `dtype`; the weight is [out, in]."""
-
-    def __init__(self, cin: int, cout: int, dtype=torch.float32):
-        super().__init__()
-        self.weight = nn.Parameter(torch.zeros(cout, cin))
-        self.bias = nn.Parameter(torch.zeros(cout))
-        self.dtype = dtype
-
-    def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype)) + self.bias.to(self.dtype)
-
-
-def _channel_shape(x):
-    return [1, x.shape[1]] + [1] * (x.ndim - 2)
-
-
-class GroupNorm1(nn.Module):
-    """Flax nn.GroupNorm(num_groups=1, dtype=f32): over every axis but the
-    batch, epsilon 1e-6, variance E[x^2] - E[x]^2 clipped at 0, in f32."""
-
-    def __init__(self, c: int, eps: float = 1e-6):
-        super().__init__()
-        self.scale = nn.Parameter(torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
-        self.eps = eps
-
-    def forward(self, x):
-        x = x.to(torch.float32)
-        dims = tuple(range(1, x.ndim))
-        mu = torch.mean(x, dim=dims, keepdim=True)
-        mu2 = torch.mean(x * x, dim=dims, keepdim=True)
-        var = torch.clamp(mu2 - mu * mu, min=0.0)
-        shape = _channel_shape(x)
-        mul = torch.rsqrt(var + self.eps) * self.scale.view(shape)
-        return (x - mu) * mul + self.bias.view(shape)
+from bundletrack_tpu_torch.utils.flax_layers import (
+    Conv,
+    Dense,
+    GroupNorm,
+    channel_shape,
+    flax_param_shapes,
+    state_dict_from_flax,
+)
 
 
 class FrozenBN(nn.Module):
@@ -123,14 +64,14 @@ class FrozenBN(nn.Module):
         self.eps = eps
 
     def forward(self, x):
-        shape = _channel_shape(x)
+        shape = channel_shape(x)
         x = x.to(torch.float32)
         return ((x - self.mean.view(shape)) * torch.rsqrt(self.var.view(shape) + self.eps)
                 * self.scale.view(shape) + self.bias.view(shape))
 
 
 def _make_norm(kind: str, c: int) -> nn.Module:
-    return FrozenBN(c) if kind == "bn" else GroupNorm1(c)
+    return FrozenBN(c) if kind == "bn" else GroupNorm(c, num_groups=1)
 
 
 class ResBlock(nn.Module):
@@ -334,22 +275,6 @@ def init_lfnet(cfg: FrontendConfig, seed: int = 0):
 # ---- carrying the Flax parameters over --------------------------------------
 
 
-def _is_kernel(key: str, t: torch.Tensor) -> bool:
-    return key.endswith(".weight") and t.ndim in (2, 4)
-
-
-def flax_param_shapes(model: nn.Module) -> dict:
-    """{Flax flat name: Flax shape} of every parameter of `model`: what a
-    checkpoint for it must hold."""
-    shapes = {}
-    for key, t in model.state_dict().items():
-        module, leaf = key.rsplit(".", 1)
-        name = module.replace(".", "/") + "/" + ("kernel" if _is_kernel(key, t) else leaf)
-        s = tuple(t.shape)
-        shapes[name] = (s[2], s[3], s[1], s[0]) if t.ndim == 4 else (s[::-1] if t.ndim == 2 else s)
-    return shapes
-
-
 def lfnet_state_dict_from_flax(flat_params) -> dict:
     """The port's state dict from the JAX package's flat parameters
     {"detector/init_conv/kernel": array, ...} (numpy arrays).
@@ -359,23 +284,15 @@ def lfnet_state_dict_from_flax(flat_params) -> dict:
     torch's (c, h, w)."""
     convs = sorted((k for k in flat_params if k.startswith("descriptor/conv") and k.endswith("/kernel")),
                    key=lambda k: int(k.split("/")[1][len("conv"):]))
-    sd = {}
-    for name, a in flat_params.items():
-        a = np.asarray(a, np.float32)
-        module, leaf = name.rsplit("/", 1)
-        key = module.replace("/", ".") + "." + leaf
-        if leaf == "kernel":
-            key = module.replace("/", ".") + ".weight"
-            if a.ndim == 4:
-                a = a.transpose(3, 2, 0, 1)
-            else:
-                if name == "descriptor/fc1/kernel":
-                    c = flat_params[convs[-1]].shape[-1]  # channels of the last descriptor conv
-                    side = math.isqrt(a.shape[0] // c)
-                    a = a.reshape(side, side, c, -1).transpose(2, 0, 1, 3).reshape(a.shape[0], -1)
-                a = a.T
-        sd[key] = torch.from_numpy(np.ascontiguousarray(a))
-    return sd
+
+    def reorder_fc1(name, a):
+        if name != "descriptor/fc1/kernel":
+            return a
+        c = flat_params[convs[-1]].shape[-1]  # channels of the last descriptor conv
+        side = math.isqrt(a.shape[0] // c)
+        return a.reshape(side, side, c, -1).transpose(2, 0, 1, 3).reshape(a.shape[0], -1)
+
+    return state_dict_from_flax(flat_params, dense_kernel=reorder_fc1)
 
 
 def load_params_npz(path: str, cfg: FrontendConfig):

@@ -1,4 +1,4 @@
-"""Scalar constants evaluated in f32 on the host.
+"""Scalar constants evaluated in f32 on the host, and XLA's flush of denormals.
 
 The JAX package folds configuration values into weakly typed f32 constants
 (`jnp.cos(jnp.deg2rad(45.0))` is computed in f32).  The port evaluates the
@@ -11,6 +11,8 @@ the device) is needed.
 from __future__ import annotations
 
 import torch
+
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
 
 
 def _t(x: float) -> torch.Tensor:
@@ -31,6 +33,12 @@ def square_f32(x: float) -> float:
 def exp_f32(x: float) -> float:
     """exp(f32(x)) evaluated in f32."""
     return float(torch.exp(_t(x)))
+
+
+def flush_denormals(x: torch.Tensor) -> torch.Tensor:
+    """x with its denormal f32 values set to 0, as XLA on the CPU treats
+    them (flush to zero); torch keeps them."""
+    return torch.where(torch.abs(x) < _F32_TINY, torch.zeros_like(x), x)
 
 
 def cos_deg_f32(deg: float) -> float:

@@ -29,8 +29,26 @@
    with `apps.eval_ycbineoat` and holds them to the bars of
    tests/test_e2e_parity.py (ADD-S AUC > 90, ADD AUC > 80); the matcher's
    launch count must equal the number of tracked frames.
-6. Prints one JSON line describing every kernel, the card's line, and as
-   its last line {"ok": true, "device": {...}}.
+6. VOS phase: propagates frame 0's mask through the 20 frames with the
+   shipped width-96 weights (checkpoints/vos_params.npz) and the default
+   SegmentationConfig (ref_num 9, history 48, sigma 8/21, T 0.05, a 60x80
+   grid); bars: per-frame IoU against the renderer's masks, mean >= 0.95
+   and min >= 0.94.  The card's masks and soft labels on the first three
+   propagated frames are held to the port on the CPU (masks differ on at
+   most 0.5 % of pixels).  Then `vos_bench.vos_report`: ms per propagate,
+   device time, launches, top kernels, the stage split, peak memory, bound.
+7. VOS -> tracker chain: `apps.run_vos` on the exported rgb/ directory from
+   masks/00000.png, then `apps.run_tracking` (classical frontend, default
+   widths) with mask_dir the VOS masks, then `apps.eval_ycbineoat`; bars:
+   0 missing, ADD-S AUC > 85, matcher launches = tracked frames.
+8. NOCS chain: the frames exported with `export_nocs_sequence`, a config at
+   `nocs_config`'s default widths (use_6pack_datalist false),
+   `apps.run_tracking --dataset nocs`, then `apps.eval_nocs --noise_trans
+   0.02 --seed 0`; bars: 0 missing, IoU25 > 90, 5deg5cm > 70, matcher
+   launches = tracked frames; the NOCS mask fills timed alone.
+9. Prints one JSON line describing every kernel (the matcher's launches
+   summed over phases 3, 5, 7 and 8), the card's line, and as its last
+   line {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and the last line is not
 printed.  Without a CUDA device, or without the package beside it, it fails.
@@ -38,9 +56,11 @@ printed.  Without a CUDA device, or without the package beside it, it fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -50,6 +70,13 @@ K_BA, P_PAIRS, N_KPTS, D_DESC = 16, 120, 512, 256
 NUM_FRAMES = 20
 LFNET_CKPT = "checkpoints/lfnet_params.npz"  # a relative path: the app resolves it against the repo root
 CLI_ADDS_AUC_MIN, CLI_ADD_AUC_MIN = 90.0, 80.0  # tests/test_e2e_parity.py
+# VOS on the 20 rendered 480x640 frames: the JAX package reaches mean IoU
+# 0.9685 and min 0.9623 there (on a CPU); the card must reach these bars,
+# and its masks may differ from the port's on the CPU on at most this share
+# of pixels (bf16 products and f32 sums in another order)
+VOS_MEAN_IOU_MIN, VOS_MIN_IOU_MIN, VOS_CPU_DIFF_MAX = 0.95, 0.94, 0.005
+VOS_CHAIN_ADDS_AUC_MIN = 85.0  # tests/test_vos_quality.py::test_vos_masks_drive_tracker
+NOCS_IOU25_MIN, NOCS_5D5CM_MIN = 90.0, 70.0  # tests/test_e2e_parity.py::TestE2ENocs
 DIST_ATOL = 1e-4  # the bf16-product dot summed in another order: ~1e-6 on O(1) distances
 # The gate is bit-identical and the kernel deterministic, so `mutual` may
 # differ only where a column minimum is a near tie (a dist difference of
@@ -71,6 +98,31 @@ GATE_INSTR_PER_CANDIDATE = 22
 
 def log(*args):
     print(*args, flush=True)
+
+
+@contextlib.contextmanager
+def timed_calls(cls, name: str):
+    """Times every call of the method cls.name with CUDA events; yields the
+    list of ms it fills."""
+    import torch
+
+    original = getattr(cls, name)
+    ms = []
+
+    def timed(self, *args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = original(self, *args, **kwargs)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        return out
+
+    setattr(cls, name, timed)
+    try:
+        yield ms
+    finally:
+        setattr(cls, name, original)
 
 
 def build_kernels():
@@ -277,12 +329,12 @@ def lfnet_forward_phase(seq, lf_cfg, lfnet, card: str) -> float:
     return ms
 
 
-def write_config(root: str, data_dir: str, out_dir: str) -> str:
+def write_config(root: str, data_dir: str, out_dir: str, mask_dir: str = "") -> str:
     """A reference-format config at the default widths; the sequence length
-    is the one reduction."""
+    is the one reduction.  Masks from data_dir/masks unless mask_dir says."""
     cfg = {
         "data_dir": data_dir,
-        "mask_dir": os.path.join(data_dir, "masks"),
+        "mask_dir": mask_dir or os.path.join(data_dir, "masks"),
         "debug_dir": out_dir,
         "LOG": 0,
         "bundle": {"num_iter_outter": 7, "max_BA_frames": 16},
@@ -299,10 +351,6 @@ def write_config(root: str, data_dir: str, out_dir: str) -> str:
 
 
 def cli_phase(seq, card: str) -> int:
-    import tempfile
-
-    import torch
-
     from bundletrack_tpu_torch.apps import eval_ycbineoat, run_tracking
     from bundletrack_tpu_torch.cardrun import WARMUP_FRAMES, steady_median
     from bundletrack_tpu_torch.data.export import export_ycbineoat_sequence
@@ -319,27 +367,12 @@ def cli_phase(seq, card: str) -> int:
             f"{time.perf_counter() - t0:.1f} s")
 
         # time each tracked frame of the app with CUDA events
-        frame_ms = []
-        process_frame = driver.Tracker.process_frame
-
-        def timed_process_frame(self, *args, **kwargs):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = process_frame(self, *args, **kwargs)
-            end.record()
-            end.synchronize()
-            frame_ms.append(start.elapsed_time(end))
-            return out
-
-        driver.Tracker.process_frame = timed_process_frame
-        try:
+        with timed_calls(driver.Tracker, "process_frame") as frame_ms:
             km.launches = 0  # count only this path's launches
             t0 = time.perf_counter()
             tracker = run_tracking.main([cfg_path, "--frontend", "lfnet", "--lfnet-ckpt", LFNET_CKPT])
             chain_s = time.perf_counter() - t0
             launches = km.launches
-        finally:
-            driver.Tracker.process_frame = process_frame
 
         pose_dir = os.path.join(out_dir, "poses")
         gt_dir = os.path.join(data_dir, "annotated_poses")
@@ -375,6 +408,147 @@ def cli_phase(seq, card: str) -> int:
     return launches
 
 
+def vos_phase(seq, card: str) -> dict:
+    """Propagation on the card at 480x640 against the renderer's masks and
+    against the port on the CPU, then the VOS profile (vos_bench)."""
+    from bundletrack_tpu_torch.config import SegmentationConfig
+    from bundletrack_tpu_torch.eval.vos_eval import evaluate_vos
+    from bundletrack_tpu_torch.models.vos import load_vos_npz
+    from bundletrack_tpu_torch.apps.run_vos import VOS_CKPT
+    from bundletrack_tpu_torch.vos_bench import vos_report
+
+    n_check = 3
+    model, _ = load_vos_npz(VOS_CKPT)
+    card_r = evaluate_vos(model, SegmentationConfig(), seq, device="cuda")
+    ious = card_r["per_frame"]
+    log(f"vos: per-frame IoU at {seq.gray.shape[1]}x{seq.gray.shape[2]}, shipped width-{model.width} weights: "
+        + " ".join(f"{x:.4f}" for x in ious))
+    log(f"vos: mean IoU {np.mean(ious):.4f}, min {np.min(ious):.4f} over {len(ious)} propagated frames "
+        f"(bars >= {VOS_MEAN_IOU_MIN}, >= {VOS_MIN_IOU_MIN}) [{card}]")
+
+    cpu_r = evaluate_vos(model, SegmentationConfig(), seq, num_frames=n_check + 1, device="cpu")
+    worst_share = 0.0
+    for f in range(n_check):
+        share = float((cpu_r["masks"][f] != card_r["masks"][f]).mean())
+        worst_share = max(worst_share, share)
+        log(f"vos: frame {f + 1} card vs CPU: masks differ on {share * 100:.4f} % of pixels, "
+            f"max |soft diff| {float(np.abs(cpu_r['soft'][f] - card_r['soft'][f]).max()):.3e}")
+    if worst_share > VOS_CPU_DIFF_MAX:
+        raise AssertionError(f"vos: card and CPU masks differ on {worst_share * 100:.3f} % of pixels "
+                             f"(at most {VOS_CPU_DIFF_MAX * 100} %)")
+    if np.mean(ious) < VOS_MEAN_IOU_MIN or np.min(ious) < VOS_MIN_IOU_MIN:
+        raise AssertionError(f"vos: IoU bars missed: mean {np.mean(ious):.4f}, min {np.min(ious):.4f}")
+    return vos_report(seq, card)
+
+
+def vos_chain_phase(seq, card: str) -> int:
+    """run_vos on the exported frames from the first mask, then run_tracking
+    on its masks, then eval_ycbineoat."""
+    from bundletrack_tpu_torch.apps import eval_ycbineoat, run_tracking, run_vos
+    from bundletrack_tpu_torch.cardrun import WARMUP_FRAMES, steady_median
+    from bundletrack_tpu_torch.data.export import export_ycbineoat_sequence
+    from bundletrack_tpu_torch.data.native_io import read_png
+    from bundletrack_tpu_torch.eval.vos_eval import mask_iou
+    from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.models.vos import VOSPropagator
+    from bundletrack_tpu_torch.tracker import driver
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vos_") as root:
+        data_dir = export_ycbineoat_sequence(seq, os.path.join(root, "cube"))
+        vos_dir = os.path.join(root, "vos_masks")
+        with timed_calls(VOSPropagator, "propagate") as vos_ms:
+            t0 = time.perf_counter()
+            run_vos.main(["--img_dir", os.path.join(data_dir, "rgb"),
+                          "--init_mask_file", os.path.join(data_dir, "masks", "00000.png"),
+                          "--mask_save_dir", vos_dir])
+            vos_s = time.perf_counter() - t0
+        names = sorted(os.listdir(vos_dir))
+        if len(names) != len(seq.gray):
+            raise AssertionError(f"vos chain: {len(names)} mask files for {len(seq.gray)} frames")
+        ious = [mask_iou(read_png(os.path.join(vos_dir, n)) > 0, seq.mask[f]) for f, n in enumerate(names)]
+        out_dir = os.path.join(root, "out")
+        cfg_path = write_config(root, data_dir, out_dir, mask_dir=vos_dir)
+        with timed_calls(driver.Tracker, "process_frame") as frame_ms:
+            km.launches = 0  # count only this path's launches
+            t0 = time.perf_counter()
+            tracker = run_tracking.main([cfg_path, "--frontend", "classical"])
+            track_s = time.perf_counter() - t0
+            launches = km.launches
+        res = eval_ycbineoat.evaluate(
+            os.path.join(out_dir, "poses"), os.path.join(data_dir, "annotated_poses"),
+            eval_ycbineoat.load_model_points(os.path.join(data_dir, "model", "points.xyz")))
+
+    statuses = [int(o.status) for o in tracker.outputs]
+    tracked = len(statuses) - 1
+    log(f"vos chain: run_vos {len(names)} masks in {vos_s:.1f} s, propagate median "
+        f"{steady_median(vos_ms):.2f} ms (CUDA events, frames {WARMUP_FRAMES + 1}..{len(vos_ms)}), "
+        f"first {vos_ms[0]:.1f} ms; VOS mask IoU mean {np.mean(ious):.4f}, min {np.min(ious):.4f}")
+    log(f"vos chain: run_tracking on the VOS masks (classical, default widths): statuses {statuses}; "
+        f"median tracked frame {steady_median(frame_ms):.2f} ms (CUDA events around process_frame), whole app "
+        f"{track_s:.1f} s; ADD AUC {res['ADD_AUC']:.2f}, ADD-S AUC {res['ADDS_AUC']:.2f}, "
+        f"missing {res['missing']}, matcher launches {launches} [{card}]")
+    if launches != tracked:
+        raise AssertionError(f"vos chain: matcher launches {launches} != tracked frames {tracked}")
+    if res["missing"] or res["ADDS_AUC"] <= VOS_CHAIN_ADDS_AUC_MIN:
+        raise AssertionError(f"vos chain: pose bars missed (0 missing, ADD-S AUC > {VOS_CHAIN_ADDS_AUC_MIN}): {res}")
+    return launches
+
+
+def nocs_phase(seq, card: str) -> int:
+    """The NOCS layout on disk, run_tracking --dataset nocs at the preset's
+    default widths, eval_nocs with the reference's init-pose noise; and the
+    NOCS mask fills timed alone."""
+    import torch
+    import yaml
+
+    from bundletrack_tpu_torch.apps import eval_nocs, run_tracking
+    from bundletrack_tpu_torch.cardrun import WARMUP_FRAMES, cuda_median_ms, steady_median
+    from bundletrack_tpu_torch.config import nocs_config
+    from bundletrack_tpu_torch.data.export import export_nocs_sequence
+    from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.ops import masks
+    from bundletrack_tpu_torch.tracker import driver
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nocs_") as root:
+        scene, mask_dir, gt_dir, model_path = export_nocs_sequence(seq, os.path.join(root, "nocs"))
+        out_dir = os.path.join(root, "out")
+        cfg_path = os.path.join(root, "config_nocs.yml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump({"data_dir": scene, "mask_dir": mask_dir, "model_name": "camera_synthetic",
+                            "debug_dir": out_dir, "LOG": 0, "use_6pack_datalist": False}, f)
+        with timed_calls(driver.Tracker, "process_frame") as frame_ms:
+            km.launches = 0  # count only this path's launches
+            t0 = time.perf_counter()
+            tracker = run_tracking.main([cfg_path, "--dataset", "nocs"])
+            track_s = time.perf_counter() - t0
+            launches = km.launches
+        res = eval_nocs.main(["--pred_dir", os.path.join(out_dir, "poses"), "--gt_dir", gt_dir,
+                              "--model", model_path, "--class_name", "camera",
+                              "--noise_trans", "0.02", "--seed", "0"])
+
+    statuses = [int(o.status) for o in tracker.outputs]
+    tracked = len(statuses) - 1
+    if tracker.cfg.bundle.max_ba_frames != nocs_config().bundle.max_ba_frames or not tracker.cfg.segmentation.nocs_mask_fill:
+        raise AssertionError("nocs: the run did not use the NOCS preset")
+    seg = tracker.cfg.segmentation
+    mask = torch.as_tensor(seq.mask[len(seq.mask) // 2], device="cuda")
+    lcc_ms = cuda_median_ms(lambda: masks.largest_component_fill(mask))
+    hull_ms = cuda_median_ms(lambda: masks.convex_hull_fill(mask))
+    pre_ms = cuda_median_ms(lambda: masks.preprocess_mask(mask, seg))
+    log(f"nocs: statuses {statuses}; median tracked frame {steady_median(frame_ms):.2f} ms (CUDA events around "
+        f"process_frame, frames {WARMUP_FRAMES}..{len(frame_ms) - 1}), whole app {track_s:.1f} s; "
+        f"IoU25 {res['IoU25']:.2f}, 5deg5cm {res['5deg5cm']:.2f}, rotation {res['rot_err_deg_mean']:.4f} deg, "
+        f"translation {res['trans_err_cm_mean']:.4f} cm, missing {res['missing']}, matcher launches {launches}")
+    log(f"nocs: mask fills per {mask.shape[0]}x{mask.shape[1]} frame (CUDA events, median): largest component "
+        f"{lcc_ms:.4f} ms, convex hull {hull_ms:.4f} ms, the whole preprocess_mask {pre_ms:.4f} ms [{card}]")
+    if launches != tracked:
+        raise AssertionError(f"nocs: matcher launches {launches} != tracked frames {tracked}")
+    if res["missing"] or res["IoU25"] <= NOCS_IOU25_MIN or res["5deg5cm"] <= NOCS_5D5CM_MIN:
+        raise AssertionError(f"nocs: bars missed (0 missing, IoU25 > {NOCS_IOU25_MIN}, "
+                             f"5deg5cm > {NOCS_5D5CM_MIN}): {res}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -401,11 +575,25 @@ def main() -> int:
     lfnet = shipped_lfnet(lf_cfg)
 
     kernel = kernel_phase(seq, cfg, device, lf_cfg, lfnet)
+    phase_s = {}
+    t0 = time.perf_counter()
     classical_launches = tracker_phase(seq, cfg, card)
     lfnet_forward_phase(seq, lf_cfg, lfnet, card)
     cli_launches = cli_phase(seq, card)
-    kernel["launches"] = classical_launches + cli_launches
-    log(f"matcher launches: classical tracker phase {classical_launches}, lfnet CLI phase {cli_launches}")
+    phase_s["tracker, lfnet, cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vos_phase(seq, card)
+    phase_s["vos"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vos_chain_launches = vos_chain_phase(seq, card)
+    phase_s["vos chain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nocs_launches = nocs_phase(seq, card)
+    phase_s["nocs chain"] = time.perf_counter() - t0
+    kernel["launches"] = classical_launches + cli_launches + vos_chain_launches + nocs_launches
+    log(f"matcher launches: classical tracker phase {classical_launches}, lfnet CLI phase {cli_launches}, "
+        f"VOS chain {vos_chain_launches}, NOCS chain {nocs_launches}")
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     log(json.dumps({"kernels": [kernel]}))
     log(card)

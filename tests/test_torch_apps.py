@@ -129,10 +129,14 @@ def test_cli_chain_meets_the_pose_bars(seq_dir, tmp_path, frontend, extra):
 @pytest.mark.parametrize("args,raw", [(["--dataset", "nocs"], {}), ([], {"use_6pack_datalist": True})],
                          ids=["flag", "auto"])
 def test_nocs_dataset_raises(tmp_path, args, raw):
+    """--dataset nocs, or `auto` on a use_6pack_datalist config, reads the
+    directory with the NOCS loader (tests/test_torch_nocs.py runs the
+    chain); on an empty directory it raises for want of NOCS frames or of
+    the 6-PACK list, where the YCBInEOAT loader would want cam_K.txt."""
     cfg = str(tmp_path / "config.yml")
     with open(cfg, "w") as f:
         yaml.safe_dump({"data_dir": str(tmp_path), **raw}, f)
-    with pytest.raises(NotImplementedError, match="NOCS"):
+    with pytest.raises(FileNotFoundError, match="no frames found|NOCS-REAL275-additional"):
         run_tracking([cfg, "--device", "cpu", *args])
 
 

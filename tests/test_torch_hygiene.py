@@ -2,7 +2,8 @@
 
 Checked two ways: statically, on every import statement of the port and of
 chip_smoke.py; and at run time, in a fresh interpreter that imports the port,
-tracks two frames on the CPU with each frontend, and runs the CLI chain.
+tracks two frames on the CPU with each frontend, runs the CLI chain, run_vos
+on two frames, and one NOCS frame through run_tracking --dataset nocs.
 """
 
 import ast
@@ -76,6 +77,22 @@ with tempfile.TemporaryDirectory() as root:
     run_tracking.main([os.path.join(root, "c.yml"), "--device", "cpu"])
     eval_ycbineoat.evaluate(os.path.join(root, "out", "poses"), os.path.join(data, "annotated_poses"),
                             eval_ycbineoat.load_model_points(os.path.join(data, "model", "points.xyz")))
+    from bundletrack_tpu_torch.apps import eval_nocs, run_vos
+    from bundletrack_tpu_torch.data.export import export_nocs_sequence
+    small = render_synthetic_sequence(num_frames=2, H=32, W=32)
+    vdir = export_ycbineoat_sequence(small, os.path.join(root, "small"))
+    run_vos.main(["--img_dir", os.path.join(vdir, "rgb"), "--init_mask_file", os.path.join(vdir, "masks", "00000.png"),
+                  "--mask_save_dir", os.path.join(root, "vos"), "--device", "cpu"])
+    assert sorted(os.listdir(os.path.join(root, "vos"))) == ["00000.png", "00001.png"]
+    scene, mdir, gdir, model = export_nocs_sequence(seq, os.path.join(root, "nocs"))
+    with open(os.path.join(root, "n.yml"), "w") as f:
+        yaml.safe_dump({"data_dir": scene, "mask_dir": mdir, "model_name": "camera_mini", "use_6pack_datalist": False,
+                        "debug_dir": os.path.join(root, "nout"), "frontend": {"top_k": 64},
+                        "bundle": {"max_BA_frames": 3}, "keyframe": {"pool_size": 4},
+                        "ransac": {"max_iter": 128}, "shapes": {"max_matches": 64}}, f)
+    run_tracking.main([os.path.join(root, "n.yml"), "--dataset", "nocs", "--max-frames", "1", "--device", "cpu"])
+    eval_nocs.main(["--pred_dir", os.path.join(root, "nout", "poses"), "--gt_dir", gdir, "--model", model,
+                    "--class_name", "camera"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax") or m == "bundletrack_tpu"
              or m.startswith("bundletrack_tpu."))
@@ -87,7 +104,9 @@ def test_scan_covers_every_module_of_the_slices():
     scanned = {os.path.relpath(p, REPO) for p in _port_files()}
     for module in ("frontend/lfnet.py", "frontend/detector_ops.py", "ops/resize.py", "utils/params_io.py",
                    "data/native_io.py", "data/ycbineoat.py", "data/export.py", "apps/run_tracking.py",
-                   "apps/eval_ycbineoat.py", "tracker/bundler.py", "kernels/matching.py"):
+                   "apps/eval_ycbineoat.py", "tracker/bundler.py", "kernels/matching.py",
+                   "utils/flax_layers.py", "models/vos.py", "eval/vos_eval.py", "apps/run_vos.py", "ops/masks.py",
+                   "data/nocs.py", "eval/nocs_protocol.py", "apps/eval_nocs.py", "vos_bench.py"):
         assert os.path.join("bundletrack_tpu_torch", module) in scanned, module
 
 

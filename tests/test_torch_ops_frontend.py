@@ -85,8 +85,13 @@ def test_masks(frames):
 
 
 def test_nocs_mask_fill_not_ported():
-    with pytest.raises(NotImplementedError):
-        preprocess_mask(torch.zeros(8, 8, dtype=torch.bool), tcfg.SegmentationConfig(nocs_mask_fill=True))
+    """The NOCS mask fill is ported now: the chain equals the JAX package's,
+    on a rendered mask and on an empty one (tests/test_torch_nocs.py holds
+    each fill to JAX on more masks)."""
+    for m in (jax_render(num_frames=1, H=48, W=64).mask[0], np.zeros((8, 8), bool)):
+        got = preprocess_mask(torch.from_numpy(m), tcfg.SegmentationConfig(nocs_mask_fill=True)).numpy()
+        want = np.asarray(j_preprocess_mask(jnp.asarray(m), SegmentationConfig(nocs_mask_fill=True)))
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("f,top_k,z0", [(0, 128, 0.55), (1, 256, 0.55), (2, 128, 0.0)])
