@@ -65,7 +65,7 @@ class BundleConfig:
     w_sparse: float = 1.0
     w_dense_depth: float = 1.0
     w_dense_color: float = 0.0  # the photometric term is not ported yet
-    early_stop_delta: float = 0.0  # only 0 is ported: always run num_iter_outer iterations
+    early_stop_delta: float = 0.0  # > 0: a graph stops once its max |delta| is below it
     use_verification: bool = False
     verify_dist_thresh: float = 0.02
     verify_percent_thresh: float = 0.05

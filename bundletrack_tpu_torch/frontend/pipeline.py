@@ -12,6 +12,9 @@ Two frontends:
     ROI crop at cfg.input_size, keypoints mapped back through the affine.
     It needs the net: without `lfnet_apply` it raises, where the JAX
     package runs the classical frontend instead.
+
+Inputs may carry a leading stream axis: the classical frontend detects on
+every stream at once, the LF-Net branch crops and runs the net per stream.
 """
 
 from __future__ import annotations
@@ -28,37 +31,40 @@ from bundletrack_tpu_torch.ops.resize import crop_resize_square, keypoints_to_or
 
 
 class FrameFeatures(NamedTuple):
-    """Keypoints lifted to 3D for one frame."""
+    """Keypoints lifted to 3D for one frame (or a leading stream axis)."""
 
-    uv: torch.Tensor  # [N, 2] pixel coords
-    desc: torch.Tensor  # [N, D]
-    pts: torch.Tensor  # [N, 3] camera-space
-    normals: torch.Tensor  # [N, 3]
-    valid: torch.Tensor  # [N]
+    uv: torch.Tensor  # [..., N, 2] pixel coords
+    desc: torch.Tensor  # [..., N, D]
+    pts: torch.Tensor  # [..., N, 3] camera-space
+    normals: torch.Tensor  # [..., N, 3]
+    valid: torch.Tensor  # [..., N]
 
 
 def _lift_to_3d(out: FrontendOutput, points_map, normals_map, valid_map) -> FrameFeatures:
-    H, W = valid_map.shape
-    ui = torch.clamp(torch.round(out.kpts_uv[:, 0]).long(), 0, W - 1)
-    vi = torch.clamp(torch.round(out.kpts_uv[:, 1]).long(), 0, H - 1)
-    pts = points_map[vi, ui]
-    normals = normals_map[vi, ui]
-    ok = out.valid & valid_map[vi, ui]
+    H, W = valid_map.shape[-2:]
+    ui = torch.clamp(torch.round(out.kpts_uv[..., 0]).long(), 0, W - 1)
+    vi = torch.clamp(torch.round(out.kpts_uv[..., 1]).long(), 0, H - 1)
+    lin = (vi * W + ui).reshape(-1, ui.shape[-1])  # [B, N]
+    B, N = lin.shape
+    pick = lin[..., None].expand(B, N, 3)
+    pts = torch.gather(points_map.reshape(B, H * W, 3), 1, pick).reshape(*ui.shape, 3)
+    normals = torch.gather(normals_map.reshape(B, H * W, 3), 1, pick).reshape(*ui.shape, 3)
+    ok = out.valid & torch.gather(valid_map.reshape(B, H * W), 1, lin).reshape(ui.shape)
     return FrameFeatures(
         uv=out.kpts_uv,
         desc=out.desc,
-        pts=torch.where(ok[:, None], pts, torch.zeros_like(pts)),
-        normals=torch.where(ok[:, None], normals, torch.zeros_like(normals)),
+        pts=torch.where(ok[..., None], pts, torch.zeros_like(pts)),
+        normals=torch.where(ok[..., None], normals, torch.zeros_like(normals)),
         valid=ok,
     )
 
 
 def extract_frame_features(
-    gray: torch.Tensor,  # [H, W] in [0, 1]
-    mask: torch.Tensor,  # [H, W] bool
-    points_map: torch.Tensor,  # [H, W, 3]
-    normals_map: torch.Tensor,  # [H, W, 3]
-    valid_map: torch.Tensor,  # [H, W] bool
+    gray: torch.Tensor,  # [..., H, W] in [0, 1]
+    mask: torch.Tensor,  # [..., H, W] bool
+    points_map: torch.Tensor,  # [..., H, W, 3]
+    normals_map: torch.Tensor,  # [..., H, W, 3]
+    valid_map: torch.Tensor,  # [..., H, W] bool
     cfg: FrontendConfig,
     lfnet_apply=None,  # callable(crop [S, S, 1]) -> FrontendOutput in crop coords
 ) -> FrameFeatures:
@@ -76,6 +82,12 @@ def extract_frame_features(
         raise ValueError(f"unknown frontend.kind {cfg.kind!r}")
     if lfnet_apply is None:
         raise ValueError("frontend.kind='lfnet' needs the net: pass lfnet_apply")
+    if gray.dim() == 3:  # a stream axis: one crop and forward per stream
+        per_stream = [
+            extract_frame_features(*args, cfg, lfnet_apply)
+            for args in zip(gray, mask, points_map, normals_map, valid_map)
+        ]
+        return FrameFeatures(*(torch.stack(f) for f in zip(*per_stream)))
 
     # learned path: the crop is masked first, as the reference zeroes every
     # pixel outside the segmentation (Frame::invalidatePixelsByMask)

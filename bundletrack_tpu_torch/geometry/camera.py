@@ -18,13 +18,14 @@ def scale_intrinsics(K: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 def unproject(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
-    """Depth map [H, W] -> camera-space points [H, W, 3] (zero depth gives
-    zero-depth points; callers carry a validity mask)."""
+    """Depth maps [..., H, W] with intrinsics [..., 3, 3] -> camera-space
+    points [..., H, W, 3] (zero depth gives zero-depth points; callers carry
+    a validity mask)."""
     H, W = depth.shape[-2], depth.shape[-1]
     v = torch.arange(H, dtype=depth.dtype, device=depth.device)[:, None]
     u = torch.arange(W, dtype=depth.dtype, device=depth.device)[None, :]
-    fx, fy = K[..., 0, 0], K[..., 1, 1]
-    cx, cy = K[..., 0, 2], K[..., 1, 2]
+    fx, fy = K[..., 0, 0, None, None], K[..., 1, 1, None, None]
+    cx, cy = K[..., 0, 2, None, None], K[..., 1, 2, None, None]
     x = (u - cx) / fx * depth
     y = (v - cy) / fy * depth
     return torch.stack([x, y, depth], dim=-1)

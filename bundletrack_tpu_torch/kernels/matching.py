@@ -40,14 +40,11 @@ def _thresholds(max_dist: float, max_normal_deg: float):
     return max_dist_sq, cos_thresh
 
 
-def fused_mutual_match_reference(
+def gated_distances(
     desc_a, desc_b, wa, wb, na, nb, valid_a, valid_b, max_dist: float, max_normal_deg: float
 ):
-    """Plain PyTorch version of `fused_mutual_match`, on any device.
-
-    Same arguments and results as the adapter.  Materializes the [P,N,N]
-    matrices the kernel never stores.
-    """
+    """The [P, N, N] gated descriptor distances the matcher minimizes (BIG
+    where the geometric gate fails), as the plain version computes them."""
     max_dist_sq, cos_thresh = _thresholds(max_dist, max_normal_deg)
     # invalid keypoints leave gate range: A side to +1e4, B side to -1e4,
     # so invalid-vs-invalid pairs are 2e4 apart too
@@ -68,7 +65,18 @@ def fused_mutual_match_reference(
     cos = cos + na[:, :, None, 1] * nb[:, None, :, 1]
     cos = cos + na[:, :, None, 2] * nb[:, None, :, 2]
     gate = (d2 < max_dist_sq) & (cos > cos_thresh)
-    gated = torch.where(gate, dist, torch.full_like(dist, BIG))
+    return torch.where(gate, dist, torch.full_like(dist, BIG))
+
+
+def fused_mutual_match_reference(
+    desc_a, desc_b, wa, wb, na, nb, valid_a, valid_b, max_dist: float, max_normal_deg: float
+):
+    """Plain PyTorch version of `fused_mutual_match`, on any device.
+
+    Same arguments and results as the adapter.  Materializes the [P,N,N]
+    matrices the kernel never stores.
+    """
+    gated = gated_distances(desc_a, desc_b, wa, wb, na, nb, valid_a, valid_b, max_dist, max_normal_deg)
     row_min = torch.amin(gated, dim=-1)
     best_b = torch.argmin(gated, dim=-1)  # first index among equal values
     col_min = torch.amin(gated, dim=-2)

@@ -120,12 +120,12 @@ def merge_matches(
 
     Each keypoint of frame A keeps at most one partner.  Every kept row
     scores 1.0, so the order of the output is decided by ties alone: the
-    stable top-k keeps rows in index order, as `lax.top_k` does.
+    stable top-k keeps rows in index order, as `lax.top_k` does.  Match
+    sets [..., M] may carry any leading axes (streams, pairs).
     """
-    batched = fresh.idx_a.dim() == 2
-    if not batched:
-        fresh = MatchResult(*(t[None] for t in fresh))
-        extra = MatchResult(*(t[None] for t in extra))
+    lead = fresh.idx_a.shape[:-1]
+    fresh = MatchResult(*(t.reshape(-1, t.shape[-1]) for t in fresh))
+    extra = MatchResult(*(t.reshape(-1, t.shape[-1]) for t in extra))
     B = fresh.idx_a.shape[0]
     row = torch.full((B, num_kpts), -1, dtype=torch.int64, device=fresh.idx_a.device)
     # extras first, fresh overwrites (priority): one write, fresh last
@@ -143,7 +143,7 @@ def merge_matches(
         idx_b=torch.where(valid, torch.gather(row, 1, topi), zero),
         valid=valid,
     )
-    return out if batched else MatchResult(*(t[0] for t in out))
+    return MatchResult(*(t.reshape(*lead, max_matches) for t in out))
 
 
 def _select_top_rows(best_b, dist, mutual, max_matches: int) -> MatchResult:
@@ -158,12 +158,12 @@ def _select_top_rows(best_b, dist, mutual, max_matches: int) -> MatchResult:
 
 
 def match_pairs_batched(
-    desc,  # [K, N, D] descriptor table (BA subset)
-    pts,  # [K, N, 3]
-    normals,  # [K, N, 3]
-    kp_valid,  # [K, N]
-    poses,  # [K, 4, 4]
-    pair_i,  # [P] int32 (any integer type)
+    desc,  # [..., K, N, D] descriptor table (BA subset; leading axes: streams)
+    pts,  # [..., K, N, 3]
+    normals,  # [..., K, N, 3]
+    kp_valid,  # [..., K, N]
+    poses,  # [..., K, 4, 4]
+    pair_i,  # [P] int32 (any integer type): frames of the table flattened over its leading axes
     pair_j,  # [P]
     pair_valid,  # [P] bool
     max_dist: float,
@@ -172,13 +172,16 @@ def match_pairs_batched(
 ) -> MatchResult:
     """All-pairs matching over a frame table — the BA edge builder
     (reference Bundler::optimizeGPU per-pair loop, src/Bundler.cpp:298-324).
-    The fused matcher reads the [K, N, D] table in place through the pair
-    indices and matches every (i, j) pair in one launch; no [P, N, D] copy
-    of either side is made."""
-    world = transform_points(poses, pts)  # [K, N, 3]
-    wnrm = transform_normals(poses, normals)
+    The fused matcher reads the table in place through the pair indices and
+    matches every (i, j) pair in one launch; no [P, N, D] copy of either
+    side is made.  A fleet's tables [S, K, N, D] are one [S*K, N, D] table
+    to the kernel, and stream s's pairs index it at s*K + i, so all S*P
+    pairs take one launch.  Returns [P, M] matches."""
+    N, D = desc.shape[-2:]
+    world = transform_points(poses, pts).reshape(-1, N, 3)  # [S*K, N, 3]
+    wnrm = transform_normals(poses, normals).reshape(-1, N, 3)
     best_b, dist, mutual = fused_mutual_match_pairs(
-        desc, world, wnrm, kp_valid, pair_i, pair_j,
+        desc.reshape(-1, N, D), world, wnrm, kp_valid.reshape(-1, N), pair_i, pair_j,
         max_dist=max_dist,
         max_normal_deg=max_normal_deg,
     )

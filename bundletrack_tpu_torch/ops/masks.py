@@ -19,15 +19,16 @@ import torch.nn.functional as F
 
 
 def dilate_mask(mask: torch.Tensor, iterations: int = 1, ksize: int = 5) -> torch.Tensor:
-    """Binary dilation with a ksize x ksize rect element (non-wrapping edges;
-    reference cv::dilate with MORPH_RECT {5,5}).  Max pooling pads with -inf,
-    like the JAX package's reduce_window."""
-    m = mask.to(torch.float32)[None, None]
+    """Binary dilation of [..., H, W] masks with a ksize x ksize rect element
+    (non-wrapping edges; reference cv::dilate with MORPH_RECT {5,5}).  Max
+    pooling pads with -inf, like the JAX package's reduce_window."""
+    H, W = mask.shape[-2], mask.shape[-1]
+    m = mask.to(torch.float32).reshape(-1, 1, H, W)
     r = ksize // 2
     for _ in range(iterations):
         m = F.max_pool2d(m, (ksize, 1), stride=1, padding=(r, 0))
         m = F.max_pool2d(m, (1, ksize), stride=1, padding=(0, r))
-    return m[0, 0] > 0
+    return m.reshape(mask.shape) > 0
 
 
 def mask_roi(mask: torch.Tensor):
@@ -145,8 +146,10 @@ def preprocess_mask(mask: torch.Tensor, seg_cfg) -> torch.Tensor:
     on the NOCS path (seg_cfg.nocs_mask_fill) the largest component, then
     its convex hull; then always exactly one 5x5 dilate
     (src/Frame.cpp:313-315).  The reference parses `seg_dilation_iter` but
-    never reads it, and neither does the port."""
+    never reads it, and neither does the port.  Masks [..., H, W]: the
+    fills run per mask, the dilation on all at once."""
     if seg_cfg.nocs_mask_fill:
-        mask = largest_component_fill(mask)
-        mask = convex_hull_fill(mask)
+        H, W = mask.shape[-2], mask.shape[-1]
+        filled = [convex_hull_fill(largest_component_fill(m)) for m in mask.reshape(-1, H, W)]
+        mask = torch.stack(filled).reshape(mask.shape)
     return dilate_mask(mask, iterations=1, ksize=5)

@@ -24,15 +24,16 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def compute_normals(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Cross-product normals of central differences, [H, W, 3] (zero where undefined)."""
-    right = torch.roll(points, -1, dims=1)
-    left = torch.roll(points, 1, dims=1)
-    down = torch.roll(points, -1, dims=0)
-    up = torch.roll(points, 1, dims=0)
-    v_r = torch.roll(valid, -1, dims=1)
-    v_l = torch.roll(valid, 1, dims=1)
-    v_d = torch.roll(valid, -1, dims=0)
-    v_u = torch.roll(valid, 1, dims=0)
+    """Cross-product normals of central differences, [..., H, W, 3] (zero
+    where undefined)."""
+    right = torch.roll(points, -1, dims=-2)
+    left = torch.roll(points, 1, dims=-2)
+    down = torch.roll(points, -1, dims=-3)
+    up = torch.roll(points, 1, dims=-3)
+    v_r = torch.roll(valid, -1, dims=-1)
+    v_l = torch.roll(valid, 1, dims=-1)
+    v_d = torch.roll(valid, -1, dims=-2)
+    v_u = torch.roll(valid, 1, dims=-2)
     H, W = valid.shape[-2:]
     border = torch.zeros((H, W), dtype=torch.bool, device=valid.device)
     border[0, :] = True
@@ -50,7 +51,8 @@ def compute_normals(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def depth_to_cloud_and_normals(depth: torch.Tensor, K: torch.Tensor):
-    """Returns (points [H,W,3], normals [H,W,3], valid [H,W])."""
+    """Depth [..., H, W], intrinsics [..., 3, 3] -> (points [..., H, W, 3],
+    normals [..., H, W, 3], valid [..., H, W])."""
     valid = depth > 0.1
     pts = unproject(depth, K)
     pts = torch.where(valid[..., None], pts, torch.zeros_like(pts))

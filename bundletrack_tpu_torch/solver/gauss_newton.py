@@ -4,8 +4,10 @@ Counterpart of bundletrack_tpu/solver/gauss_newton.py (reference:
 src/cuda/Solver/SolverBundling.cu solveBundlingStub).  At <= 16 frames the
 normal equations are a 96x96 system: the dense blocked H is formed and
 solved by an equilibrated, Levenberg-damped Cholesky.  Frames with
-free_mask=False keep their pose (gauge fixing).  The iteration count is
-fixed, so the loop makes no device-to-host read.
+free_mask=False keep their pose (gauge fixing).  Leading axes batch
+independent graphs: the fleet solves every stream's graph at once, with
+batched Cholesky factorizations of [S, 6K, 6K].  Without early stopping
+the loop runs num_iter_outer iterations and makes no device-to-host read.
 """
 
 from __future__ import annotations
@@ -26,9 +28,9 @@ from bundletrack_tpu_torch.solver.residuals import (
 class GraphInputs(NamedTuple):
     """Everything the optimizer needs for one BA solve."""
 
-    poses: torch.Tensor  # [K, 4, 4] cam->model initial estimates
-    frame_valid: torch.Tensor  # [K] bool
-    free_mask: torch.Tensor  # [K] bool — False = gauge-fixed
+    poses: torch.Tensor  # [..., K, 4, 4] cam->model initial estimates
+    frame_valid: torch.Tensor  # [..., K] bool
+    free_mask: torch.Tensor  # [..., K] bool — False = gauge-fixed
     corres: SparseCorres
     dense_compact: Optional[CompactDense] = None
     K_lowres: Optional[torch.Tensor] = None
@@ -36,18 +38,17 @@ class GraphInputs(NamedTuple):
 
 def _apply_gauge(H, g, free):
     """Zero rows/cols of fixed frames and put identity on their diagonal."""
-    K = H.shape[0]
+    K = H.shape[-3]
     f = free.to(H.dtype)
-    H = H * f[:, None, None, None] * f[None, :, None, None]
+    H = H * f[..., :, None, None, None] * f[..., None, :, None, None]
     eye6 = torch.eye(6, dtype=H.dtype, device=H.device)
-    k = torch.arange(K, device=H.device)
-    H = H.clone()
-    H[k, k] = H[k, k] + (1.0 - f)[:, None, None] * eye6
-    return H, g * f[:, None]
+    diag = torch.eye(K, dtype=H.dtype, device=H.device)[:, :, None, None] * eye6
+    return H + diag * (1.0 - f)[..., :, None, None, None], g * f[..., None]
 
 
 def solve_normal_equations_cholesky(H, g, lm_lambda: float):
-    """Solve (H + lambda I) delta = -g for blocked H [K,K,6,6], g [K,6].
+    """Solve (H + lambda I) delta = -g for blocked H [..., K, K, 6, 6],
+    g [..., K, 6]; the leading axes batch independent systems.
 
     Jacobi-equilibrated, then damped on the scaled system.  Where the
     JAX package's cho_factor returns NaNs on a matrix that is not positive
@@ -55,18 +56,19 @@ def solve_normal_equations_cholesky(H, g, lm_lambda: float):
     raise: cholesky_ex reports the failure in `info`, and the step is zero
     when `info != 0` or the solution is not finite.
     """
-    K = H.shape[0]
+    K = H.shape[-3]
+    batch = H.shape[:-4]
     n = K * 6
-    Hd = H.permute(0, 2, 1, 3).reshape(n, n)
-    d = torch.sqrt(torch.clamp(torch.diagonal(Hd), min=1e-10))
-    Hs = Hd / d[:, None] / d[None, :]
+    Hd = H.transpose(-3, -2).reshape(*batch, n, n)
+    d = torch.sqrt(torch.clamp(torch.diagonal(Hd, dim1=-2, dim2=-1), min=1e-10))
+    Hs = Hd / d[..., :, None] / d[..., None, :]
     lam = max(lm_lambda, 1e-6)
     Hs = Hs + lam * torch.eye(n, dtype=H.dtype, device=H.device)
-    rhs = -g.reshape(n) / d
+    rhs = -g.reshape(*batch, n) / d
     L, info = torch.linalg.cholesky_ex(Hs)
-    delta = torch.cholesky_solve(rhs[:, None], L)[:, 0] / d
-    ok = (info == 0) & torch.all(torch.isfinite(delta))
-    return torch.where(ok, delta, torch.zeros_like(delta)).reshape(K, 6)
+    delta = torch.cholesky_solve(rhs[..., None], L)[..., 0] / d
+    ok = (info == 0) & torch.all(torch.isfinite(delta), dim=-1)
+    return torch.where(ok[..., None], delta, torch.zeros_like(delta)).reshape(*batch, K, 6)
 
 
 def build_normal_equations(inputs: GraphInputs, cfg, p2p=None):
@@ -102,31 +104,54 @@ def _check_supported(cfg) -> None:
         raise NotImplementedError(f"bundle.solver_backend={cfg.solver_backend!r}: only 'cholesky' is ported")
     if cfg.w_dense_color > 0.0:
         raise NotImplementedError("bundle.w_dense_color > 0: the photometric term is not ported yet")
-    if cfg.early_stop_delta > 0.0:
-        raise NotImplementedError("bundle.early_stop_delta > 0: early stopping is not ported yet")
 
 
 def optimize_pose_graph(inputs: GraphInputs, cfg, p2p=None):
-    """Run the robust-GN outer loop; returns (poses [K,4,4], info dict).
+    """Run the robust-GN outer loop; returns (poses [..., K, 4, 4], info dict).
 
     cfg: BundleConfig; p2p: P2PConfig dense-association gates (None =
-    reference defaults).
+    reference defaults).  Leading axes of the inputs batch independent
+    graphs (the fleet's streams).
+
+    With cfg.early_stop_delta > 0 a graph stops updating once its max
+    |delta| falls below it (reference EvalGNConvergence; the JAX package's
+    while_loop, which under vmap freezes each stream at its own iteration).
+    After each iteration one device-to-host read asks whether any graph is
+    still active, and the loop ends when none is: on the H100 that beat
+    running all num_iter_outer iterations masked, without reads, at 1 and 8
+    streams (PERF.md).  info["iterations"] counts each graph's updates.
     """
     _check_supported(cfg)
     free = inputs.free_mask & inputs.frame_valid
     poses = inputs.poses
-    cost = torch.zeros((), dtype=torch.float32, device=poses.device)
-    for _ in range(cfg.num_iter_outer):
-        H, g, cost = build_normal_equations(inputs._replace(poses=poses), cfg, p2p)
+    batch = poses.shape[:-3]
+    cost = torch.zeros(batch, dtype=torch.float32, device=poses.device)
+    early_stop = cfg.early_stop_delta > 0.0
+    if early_stop:
+        iterations = torch.zeros(batch, dtype=torch.int32, device=poses.device)
+        active = torch.ones(batch, dtype=torch.bool, device=poses.device)
+    else:
+        iterations = torch.full(batch, cfg.num_iter_outer, dtype=torch.int32, device=poses.device)
+    for it in range(cfg.num_iter_outer):
+        H, g, step_cost = build_normal_equations(inputs._replace(poses=poses), cfg, p2p)
         H, g = _apply_gauge(H, g, free)
         delta = solve_normal_equations_cholesky(H, g, cfg.lm_lambda)
-        delta = delta * free.to(delta.dtype)[:, None]
+        delta = delta * free.to(delta.dtype)[..., None]
         # trust-region style clamp: reject absurd steps
         step_norm = torch.linalg.norm(delta, dim=-1, keepdim=True)
         delta = torch.where(step_norm > 1.0, delta * (1.0 / step_norm), delta)
         new_poses = se3_update_left(delta, poses)
-        poses = torch.where(inputs.frame_valid[:, None, None], new_poses, poses)
-    info = {"final_cost": cost}
+        new_poses = torch.where(inputs.frame_valid[..., None, None], new_poses, poses)
+        if not early_stop:
+            poses, cost = new_poses, step_cost
+            continue
+        poses = torch.where(active[..., None, None, None], new_poses, poses)
+        cost = torch.where(active, step_cost, cost)
+        iterations = iterations + active.to(torch.int32)
+        active = active & (torch.amax(torch.abs(delta), dim=(-2, -1)) >= cfg.early_stop_delta)
+        if it + 1 < cfg.num_iter_outer and not bool(active.any()):
+            break  # device-to-host read, once per iteration
+    info = {"final_cost": cost, "iterations": iterations}
     info.update(verify_solution(poses, inputs, cfg))
     return poses, info
 
@@ -135,12 +160,12 @@ def optimize_pose_graph_verified(inputs: GraphInputs, cfg, p2p=None):
     """optimize_pose_graph + the useVerification reject path: when
     cfg.use_verification and the high-residual fraction reaches
     cfg.verify_percent_thresh, the input poses come back and `rejected` is
-    True.  Returns (poses, rejected [] bool tensor, info)."""
+    True.  Returns (poses, rejected [...] bool tensor, info)."""
     poses, info = optimize_pose_graph(inputs, cfg, p2p=p2p)
-    rejected = torch.zeros((), dtype=torch.bool, device=poses.device)
+    rejected = torch.zeros(poses.shape[:-3], dtype=torch.bool, device=poses.device)
     if cfg.use_verification:
         rejected = info["high_residual_frac"] >= cfg.verify_percent_thresh
-        poses = torch.where(rejected, inputs.poses, poses)
+        poses = torch.where(rejected[..., None, None, None], inputs.poses, poses)
     return poses, rejected, info
 
 
@@ -153,8 +178,8 @@ def verify_solution(poses, inputs: GraphInputs, cfg):
     e = torch.linalg.norm(r, dim=-1)
     e_inf = torch.amax(torch.abs(r), dim=-1) * cfg.w_sparse
     valid = inputs.corres.valid
-    n = torch.sum(valid)
-    n_high = torch.sum((e_inf > cfg.verify_dist_thresh) & valid)
-    max_res = torch.amax(torch.where(valid, e, torch.zeros_like(e)))
+    n = torch.sum(valid, dim=(-2, -1))
+    n_high = torch.sum((e_inf > cfg.verify_dist_thresh) & valid, dim=(-2, -1))
+    max_res = torch.amax(torch.where(valid, e, torch.zeros_like(e)), dim=(-2, -1))
     high = n_high / torch.clamp(n, min=1)
     return {"max_residual": max_res, "high_residual_frac": high}

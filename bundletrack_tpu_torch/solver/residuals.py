@@ -5,12 +5,16 @@ src/cuda/Solver/SolverBundlingEquationsLie.h evalFDevice / evalMinusJTFDevice).
 Residual r = T_i p_i - T_j p_j with left-multiplicative updates
 T <- exp(delta) T, delta = [t, w], d(T p)/d delta = [ I | -hat(T p) ].
 Per-pair 6x6 blocks are scatter-added into [K, K, 6, 6]; repeated pair
-indices accumulate with index_put_(accumulate=True), whose summation order
-on CUDA varies from run to run (a few f32 ulps).
+indices accumulate with index_add_, whose summation order on CUDA (atomic
+adds) varies from run to run (a few f32 ulps).
+
+Every function takes leading batch axes (the fleet's stream axis) on the
+poses and the per-pair arrays; the pair indices [P] are shared by the batch.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -22,8 +26,8 @@ from bundletrack_tpu_torch.geometry.se3 import hat, transform_points
 class SparseCorres(NamedTuple):
     """Padded correspondence set over a K-frame graph.
 
-    pair_i/pair_j: [P] frame indices; pts_i/pts_j: [P, M, 3] camera-frame
-    points of matched keypoints; valid: [P, M] bool.
+    pair_i/pair_j: [P] frame indices; pts_i/pts_j: [..., P, M, 3]
+    camera-frame points of matched keypoints; valid: [..., P, M] bool.
     """
 
     pair_i: torch.Tensor
@@ -34,46 +38,53 @@ class SparseCorres(NamedTuple):
 
 
 def sparse_residuals(poses: torch.Tensor, corres: SparseCorres):
-    """Returns (r [P, M, 3], qi [P, M, 3], qj [P, M, 3])."""
-    qi = transform_points(poses[corres.pair_i], corres.pts_i)
-    qj = transform_points(poses[corres.pair_j], corres.pts_j)
+    """Returns (r [..., P, M, 3], qi, qj) for poses [..., K, 4, 4]."""
+    qi = transform_points(poses[..., corres.pair_i, :, :], corres.pts_i)
+    qj = transform_points(poses[..., corres.pair_j, :, :], corres.pts_j)
     return qi - qj, qi, qj
 
 
 def _pair_blocks(r, qi, qj, w):
-    """Per-pair (Hii, Hjj, Hij [P,6,6], gi, gj [P,6]) with
+    """Per-pair (Hii, Hjj, Hij [..., P, 6, 6], gi, gj [..., P, 6]) with
     J_i = [I | -hat(qi)] and J_j = -[I | -hat(qj)]."""
-    P, M = r.shape[0], r.shape[1]
-    eye = torch.eye(3, dtype=r.dtype, device=r.device).expand(P, M, 3, 3)
-    Ji = torch.cat([eye, -hat(qi)], dim=-1)  # [P, M, 3, 6]
+    eye = torch.eye(3, dtype=r.dtype, device=r.device).expand(*r.shape[:-1], 3, 3)
+    Ji = torch.cat([eye, -hat(qi)], dim=-1)  # [..., P, M, 3, 6]
     Jj = -torch.cat([eye, -hat(qj)], dim=-1)
-    Hii = torch.einsum("pmai,pm,pmaj->pij", Ji, w, Ji)
-    Hjj = torch.einsum("pmai,pm,pmaj->pij", Jj, w, Jj)
-    Hij = torch.einsum("pmai,pm,pmaj->pij", Ji, w, Jj)
-    gi = torch.einsum("pmai,pm,pma->pi", Ji, w, r)
-    gj = torch.einsum("pmai,pm,pma->pi", Jj, w, r)
+    Hii = torch.einsum("...mai,...m,...maj->...ij", Ji, w, Ji)
+    Hjj = torch.einsum("...mai,...m,...maj->...ij", Jj, w, Jj)
+    Hij = torch.einsum("...mai,...m,...maj->...ij", Ji, w, Jj)
+    gi = torch.einsum("...mai,...m,...ma->...i", Ji, w, r)
+    gj = torch.einsum("...mai,...m,...ma->...i", Jj, w, r)
     return Hii, Hjj, Hij, gi, gj
 
 
 def scatter_blocks(K: int, pair_i, pair_j, Hii, Hjj, Hij, gi, gj):
-    """Accumulate per-pair blocks into H [K, K, 6, 6] and g [K, 6]."""
-    H = torch.zeros((K, K, 6, 6), dtype=Hii.dtype, device=Hii.device)
-    g = torch.zeros((K, 6), dtype=gi.dtype, device=gi.device)
-    H.index_put_((pair_i, pair_i), Hii, accumulate=True)
-    H.index_put_((pair_j, pair_j), Hjj, accumulate=True)
-    H.index_put_((pair_i, pair_j), Hij, accumulate=True)
-    H.index_put_((pair_j, pair_i), Hij.transpose(-1, -2), accumulate=True)
-    g.index_put_((pair_i,), gi, accumulate=True)
-    g.index_put_((pair_j,), gj, accumulate=True)
-    return H, g
+    """Accumulate per-pair blocks [..., P, 6, 6] into H [..., K, K, 6, 6] and
+    g [..., K, 6]; each batch entry sums its own pairs.  One index_add_ per
+    output over flat block indices (b*K + row)*K + col: on the card one
+    kernel each, where an index_put_ per block kind sorts its indices."""
+    batch = Hii.shape[:-3]
+    B = math.prod(batch)
+    blk = torch.cat([pair_i * (K + 1), pair_j * (K + 1), pair_i * K + pair_j, pair_j * K + pair_i])
+    row = torch.cat([pair_i, pair_j])
+    if B > 1:
+        first = torch.arange(B, device=Hii.device)[:, None]
+        blk = (first * (K * K) + blk).reshape(-1)
+        row = (first * K + row).reshape(-1)
+    vals = torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)], dim=-3).reshape(-1, 36)
+    H = torch.zeros((B * K * K, 36), dtype=Hii.dtype, device=Hii.device).index_add_(0, blk, vals)
+    g = torch.zeros((B * K, 6), dtype=gi.dtype, device=gi.device).index_add_(
+        0, row, torch.cat([gi, gj], dim=-2).reshape(-1, 6))
+    return H.reshape(*batch, K, K, 6, 6), g.reshape(*batch, K, 6)
 
 
 def sparse_normal_equations(poses, corres: SparseCorres, robust_delta: float, weight: float = 1.0):
     """Huber-weighted J^T J / J^T r of the sparse term.
 
-    Returns (H [K,K,6,6], g [K,6], cost scalar, per-residual weights [P,M]).
+    Returns (H [...,K,K,6,6], g [...,K,6], cost [...], per-residual weights
+    [...,P,M]).
     """
-    K = poses.shape[0]
+    K = poses.shape[-3]
     r, qi, qj = sparse_residuals(poses, corres)
     e_sq = torch.sum(r * r, dim=-1)
     rho0, rho1 = huber(e_sq, robust_delta)
@@ -81,4 +92,4 @@ def sparse_normal_equations(poses, corres: SparseCorres, robust_delta: float, we
     w = rho1 * valid * weight
     Hii, Hjj, Hij, gi, gj = _pair_blocks(r, qi, qj, w)
     H, g = scatter_blocks(K, corres.pair_i, corres.pair_j, Hii, Hjj, Hij, gi, gj)
-    return H, g, torch.sum(rho0 * valid * weight), w
+    return H, g, torch.sum(rho0 * valid * weight, dim=(-2, -1)), w

@@ -1,23 +1,36 @@
-"""The per-frame tracking step.
+"""The per-frame tracking step, over a leading stream axis.
 
-Counterpart of bundletrack_tpu/tracker/bundler.py::make_track_frame
-(reference: Bundler::processNewFrame and optimizeGPU, src/Bundler.cpp):
+Counterpart of bundletrack_tpu/tracker/bundler.py::make_track_frame and of
+its vmap in parallel/fleet.py (reference: Bundler::processNewFrame and
+optimizeGPU, src/Bundler.cpp):
 
   preprocess depth -> features -> neighbour match + RANSAC -> Procrustes
   pose init -> greedy_rot BA subset -> all-pairs matching (fused CUDA
   kernel) + landmark propagation + RANSAC on every pair -> robust GN
   pose-graph solve -> keyframe admission -> outputs.
 
-The JAX step is one traced program whose data-dependent branches are
-lax.cond / jnp.where.  Here three of them are host `if`s, and each reads
-the device once: whether this is the first frame, whether to run the BA
-solve (FAIL or too few edges), and whether to admit the frame as a
-keyframe.  So a tracked frame makes 3 device-to-host reads, the first frame
-1.  Everything else stays on the device.
+One implementation serves one stream and a fleet: `make_batched_track_frame`
+steps S streams whose every tensor carries a leading stream axis, and
+`make_track_frame` is its S = 1 view.  The JAX step is one traced program
+whose branches are lax.cond / jnp.where, and selects under vmap.  Here:
+
+- the first frame is a host `if` on the host frame count: the streams
+  advance in lockstep, so it costs no read;
+- the BA solve runs for all streams when any stream needs it (one read of
+  any/all), and each stream keeps its solved poses only if it needed the
+  solve, as lax.cond under vmap does;
+- keyframe admission builds the admitted state for all streams when any
+  stream admits (one read of any/all) and selects it per stream; the
+  previous-frame update is a per-stream select.
+
+So a tracked frame makes 2 device-to-host reads whatever S is (plus one per
+GN iteration with early stopping); the first frame makes none.  The BA
+matcher runs once per frame for all S*P pairs.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -28,6 +41,7 @@ from bundletrack_tpu_torch.frontend.pipeline import FrameFeatures, extract_frame
 from bundletrack_tpu_torch.geometry.camera import scale_intrinsics
 from bundletrack_tpu_torch.geometry.se3 import se3_compose, se3_inverse
 from bundletrack_tpu_torch.matching.mappoints import (
+    MapPointTable,
     forget_frame,
     propagate_matches,
     update_mappoints,
@@ -61,6 +75,8 @@ from bundletrack_tpu_torch.tracker.state import (
     FrameObservation,
     TrackerState,
     TrackOutput,
+    add_stream_axis,
+    drop_stream_axis,
 )
 
 
@@ -82,7 +98,8 @@ def _normalize_obs(obs: FrameObservation) -> FrameObservation:
 
 
 def _preprocess(obs: FrameObservation, cfg: TrackerConfig):
-    """Depth chain + cloud/normals + the frame's compacted dense tables."""
+    """Depth chain + cloud/normals + the frame's compacted dense tables
+    (images [..., H, W])."""
     depth = process_depth(obs.depth, cfg.depth_processing)
     pts_map, nrm_map, val_map = depth_to_cloud_and_normals(depth, obs.K)
     seg_mask = preprocess_mask(obs.mask, cfg.segmentation)
@@ -90,17 +107,28 @@ def _preprocess(obs: FrameObservation, cfg: TrackerConfig):
     val_map = val_map & seg_mask
     ds = cfg.bundle.image_downscale
     fd = compact_frame(
-        pts_map[::ds, ::ds], nrm_map[::ds, ::ds], val_map[::ds, ::ds],
+        pts_map[..., ::ds, ::ds, :], nrm_map[..., ::ds, ::ds, :], val_map[..., ::ds, ::ds],
         cfg.bundle.dense_src_capacity,
     )
     K_low = scale_intrinsics(obs.K, 1.0 / ds)
     return mask, pts_map, nrm_map, val_map, fd, K_low
 
 
+def _take_rows(table, idx):
+    """table [S, X, ...] at idx [S, ...] (indices into X) -> [S, ..., ...]."""
+    S = table.shape[0]
+    rows = torch.arange(S, device=idx.device).reshape(S, *([1] * (idx.dim() - 1)))
+    return table[rows, idx]
+
+
 def _gather_match_points(ba_pts, ba_normals, pair_i, pair_j, matches: MatchResult):
-    """[K,N,3] tables + match indices -> per-pair matched point arrays."""
+    """[S,K,N,3] tables + [S,P,M] match indices -> per-pair matched points
+    [S,P,M,3] (pair_i/pair_j [P] shared by the streams)."""
+    S, K, N, _ = ba_pts.shape
+
     def g(table, frame, idx):
-        return torch.gather(table[frame], 1, idx[..., None].expand(*idx.shape, 3))
+        lin = (frame[:, None] * N + idx).reshape(S, -1)
+        return _take_rows(table.reshape(S, K * N, 3), lin).reshape(*idx.shape, 3)
 
     return (
         g(ba_pts, pair_i, matches.idx_a), g(ba_pts, pair_j, matches.idx_b),
@@ -108,14 +136,26 @@ def _gather_match_points(ba_pts, ba_normals, pair_i, pair_j, matches: MatchResul
     )
 
 
+def _stream_select(flag, a, b):
+    """Per-stream select: a where flag[s], else b (flag [S], a/b [S, ...])."""
+    return torch.where(flag.reshape(-1, *([1] * (a.dim() - 1))), a, b)
+
+
 def _admit_keyframe(state: TrackerState, feats: FrameFeatures, pose, fd: FrameDense,
-                    frame_id, slot) -> TrackerState:
-    """Write the frame into pool slot `slot` (a 0-dim tensor), forgetting the
-    slot's old landmark observations."""
-    index = slot.reshape(1)  # a 1-element index keeps the slot on the device
+                    frame_id, slot, admit=None) -> TrackerState:
+    """Write each stream's frame into its pool slot `slot[s]` (flat index
+    s*Kp + slot[s]) and forget the slot's old landmark observations.  With
+    `admit` [S], a stream that does not admit writes its slot's old contents
+    back; its landmark table is the caller's to select."""
+    S, Kp = state.kf_frame_id.shape
+    index = torch.arange(S, device=slot.device) * Kp + slot
 
     def put(pool, value):
-        return pool.index_copy(0, index, value.to(pool.dtype)[None])
+        flat = pool.reshape(S * Kp, *pool.shape[2:])
+        value = value.to(pool.dtype)
+        if admit is not None:
+            value = _stream_select(admit, value, flat.index_select(0, index))
+        return flat.index_copy(0, index, value).reshape(pool.shape)
 
     return state._replace(
         kf_desc=put(state.kf_desc, feats.desc),
@@ -132,19 +172,22 @@ def _admit_keyframe(state: TrackerState, feats: FrameFeatures, pose, fd: FrameDe
     )
 
 
-def _set_prev(state: TrackerState, feats: FrameFeatures, pose) -> TrackerState:
+def _set_prev(state: TrackerState, feats: FrameFeatures, pose, keep=None) -> TrackerState:
+    """The frame becomes each stream's neighbour-matching target; with
+    `keep` [S], only where keep[s]."""
+    new = dict(prev_desc=feats.desc, prev_pts=feats.pts, prev_normals=feats.normals,
+               prev_kp_valid=feats.valid, prev_pose=pose)
+    if keep is None:
+        return state._replace(**new, prev_valid=torch.ones_like(state.prev_valid))
     return state._replace(
-        prev_desc=feats.desc,
-        prev_pts=feats.pts,
-        prev_normals=feats.normals,
-        prev_kp_valid=feats.valid,
-        prev_pose=pose,
-        prev_valid=torch.ones((), dtype=torch.bool, device=pose.device),
+        **{k: _stream_select(keep, v, getattr(state, k)) for k, v in new.items()},
+        prev_valid=state.prev_valid | keep,
     )
 
 
 def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
-    """Build the per-frame step for images of size H x W.
+    """Build the single-stream step for images of size H x W: the S = 1
+    view of `make_batched_track_frame`.
 
     step(state, obs, init_pose, phases=None) -> (state, TrackOutput).
     `phases` = (neighbour [3, n_rep], pairs [P, 3, n_rep]) RANSAC phases;
@@ -152,6 +195,29 @@ def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
     frontend (frontend/lfnet.make_lfnet_apply), needed when
     cfg.frontend.kind is "lfnet"; its descriptors are cfg.frontend.desc_dim
     wide.
+    """
+    batched = make_batched_track_frame(cfg, H, W, lfnet_apply)
+
+    def step(state: TrackerState, obs: FrameObservation, init_pose: torch.Tensor,
+             phases: Optional[tuple] = None):
+        if phases is not None:
+            phases = tuple(p[None] for p in phases)
+        st, out = batched(add_stream_axis(state), FrameObservation(*(t[None] for t in obs)),
+                          init_pose[None], phases)
+        return drop_stream_axis(st), TrackOutput(*(t[0] for t in out))
+
+    return step
+
+
+def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
+    """Build the step over S streams for images of size H x W.
+
+    step(state, obs, init_pose, phases=None) -> (state, TrackOutput), with a
+    leading stream axis on every tensor of the state (parallel/fleet.py),
+    of obs ([S, H, W] images, [S, 3, 3] intrinsics), of init_pose
+    [S, 4, 4] and of the outputs.  `phases` = (neighbour [S, 3, n_rep],
+    pairs [S, P, 3, n_rep]); when None, each stream draws its own from its
+    generator state.rng[s], in the order one stream draws them.
     """
     if cfg.frontend.kind == "classical" and cfg.frontend.desc_dim != 256:
         raise ValueError("the classical frontend makes 256-d descriptors (16x16 patches)")
@@ -171,41 +237,43 @@ def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
     )
     # pairs whose later frame is the new one: their verified edges feed the landmarks
     new_pairs = [p for p in range(P_PAIRS) if pair_j_np[p] == K_BA - 1]
-    # device -> (pair_i, pair_j) int64 for torch indexing, then the same as
-    # int32 for the matcher kernel, uploaded once: an int32 index costs torch
-    # a cast launch at every use, and the kernel takes int32
-    pair_index = {}
 
-    def pairs_on(dev):
-        if dev not in pair_index:
-            pair_index[dev] = tuple(
-                torch.as_tensor(a.astype(t), device=dev)
-                for t in (np.int64, np.int32) for a in (pair_i_np, pair_j_np)
-            )
-        return pair_index[dev]
+    @functools.lru_cache(maxsize=None)
+    def pairs_on(dev, S):
+        """(pair_i, pair_j) [P] int64 for torch indexing, and the S*P pairs
+        of the fleet's flattened [S*K] table, s*K + i, as int32 for the
+        matcher kernel; uploaded once: an int32 index costs torch a cast
+        launch at every use, and the kernel takes int32."""
+        flat = [(np.arange(S)[:, None] * K_BA + a[None]).reshape(-1) for a in (pair_i_np, pair_j_np)]
+        return (
+            *(torch.as_tensor(a.astype(np.int64), device=dev) for a in (pair_i_np, pair_j_np)),
+            *(torch.as_tensor(a.astype(np.int32), device=dev) for a in flat),
+        )
 
     def ba_pair_section(ba_desc, ba_pts, ba_nrm, ba_kpv, ba_pose, ba_valid,
                         mappoints, pool_slot_of, pairs, phases_pairs):
-        """Match -> propagate -> RANSAC over the BA pairs."""
-        pair_i, pair_j, pair_i32, pair_j32 = pairs
-        pair_valid = ba_valid[pair_i] & ba_valid[pair_j]
+        """Match -> propagate -> RANSAC over the BA pairs of every stream."""
+        pair_i, pair_j, flat_i32, flat_j32 = pairs
+        S = ba_desc.shape[0]
+        pair_valid = ba_valid[:, pair_i] & ba_valid[:, pair_j]  # [S, P]
         bm = match_pairs_batched(
-            ba_desc, ba_pts, ba_nrm, ba_kpv, ba_pose, pair_i32, pair_j32, pair_valid,
+            ba_desc, ba_pts, ba_nrm, ba_kpv, ba_pose, flat_i32, flat_j32, pair_valid.reshape(-1),
             max_dist=fc.max_dist_no_neighbor,
             max_normal_deg=fc.max_normal_no_neighbor,
             max_matches=M,
         )
+        bm = MatchResult(*(t.reshape(S, P_PAIRS, M) for t in bm))
         if fc.map_points:
             # seed BA pairs with landmark-propagated matches (reference
             # findCorresByMapPoints); RANSAC filters the union
-            si, sj = pool_slot_of[pair_i], pool_slot_of[pair_j]
+            si, sj = pool_slot_of[:, pair_i], pool_slot_of[:, pair_j]
             prop_ok = (si >= 0) & (sj >= 0) & pair_valid
             prop = propagate_matches(mappoints, si.clamp(min=0), sj.clamp(min=0), M)
-            prop = prop._replace(valid=prop.valid & prop_ok[:, None])
-            bm = merge_matches(bm, prop, ba_desc.shape[1], M)
-            bm = bm._replace(valid=bm.valid & pair_valid[:, None])
+            prop = prop._replace(valid=prop.valid & prop_ok[..., None])
+            bm = merge_matches(bm, prop, ba_desc.shape[-2], M)
+            bm = bm._replace(valid=bm.valid & pair_valid[..., None])
         mpa, mpb, mna, mnb = _gather_match_points(ba_pts, ba_nrm, pair_i, pair_j, bm)
-        prior = se3_compose(se3_inverse(ba_pose[pair_j]), ba_pose[pair_i])
+        prior = se3_compose(se3_inverse(ba_pose[:, pair_j]), ba_pose[:, pair_i])
         mr = ransac_pair(
             mpa, mpb, mna, mnb, bm.valid, prior,
             phases=phases_pairs,
@@ -215,47 +283,52 @@ def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
         )
         edge_valid = bm.valid & mr.inliers
         touches_new = (pair_i == new_idx) | (pair_j == new_idx)
-        n_edges_new = torch.sum(edge_valid & touches_new[:, None])
+        n_edges_new = torch.sum(edge_valid & touches_new[:, None], dim=(-2, -1))
         return bm, mpa, mpb, edge_valid, n_edges_new
+
+    def first_frame(state, feats, fd, init_pose):
+        S = init_pose.shape[0]
+        dev = init_pose.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        st = _admit_keyframe(
+            state, feats, init_pose, fd,
+            frame_id=torch.zeros((S,), **i32),
+            slot=eviction_slot(state.kf_frame_id, state.kf_pose),
+        )
+        st = _set_prev(st, feats, init_pose)
+        st = st._replace(
+            frame_count=1,
+            last_status=torch.full((S,), STATUS_OK, **i32),
+            prev_delta=torch.eye(4, dtype=init_pose.dtype, device=dev).expand(S, 4, 4).clone(),
+            pred_pose=init_pose,
+        )
+        out = TrackOutput(
+            ob_in_cam=se3_inverse(init_pose),
+            pose_in_model=init_pose,
+            status=torch.full((S,), STATUS_OK, **i32),
+            num_matches=torch.zeros((S,), **i32),
+            num_ba_edges=torch.zeros((S,), **i32),
+        )
+        return st, out
 
     def step(state: TrackerState, obs: FrameObservation, init_pose: torch.Tensor,
              phases: Optional[tuple] = None):
         dev = state.kf_pose.device
+        S, Kp = state.kf_frame_id.shape
         obs = _normalize_obs(obs)
         mask, pts_map, nrm_map, val_map, fd, K_low = _preprocess(obs, cfg)
         feats = extract_frame_features(obs.gray, mask, pts_map, nrm_map, val_map, cfg.frontend,
                                        lfnet_apply)
-        n_feat = torch.sum(feats.valid)
-        roi_ok = torch.sum(mask) > 100  # the reference FAILs on a tiny ROI
-        i32 = dict(dtype=torch.int32, device=dev)
+        n_feat = torch.sum(feats.valid, dim=-1)
+        roi_ok = torch.sum(mask, dim=(-2, -1)) > 100  # the reference FAILs on a tiny ROI
 
-        if int(state.frame_count) == 0:  # device-to-host read 1 of 1
-            st = _admit_keyframe(
-                state, feats, init_pose, fd,
-                frame_id=torch.zeros((), **i32),
-                slot=eviction_slot(state.kf_frame_id, state.kf_pose),
-            )
-            st = _set_prev(st, feats, init_pose)
-            st = st._replace(
-                frame_count=torch.ones((), **i32),
-                last_status=torch.full((), STATUS_OK, **i32),
-                prev_delta=torch.eye(4, dtype=init_pose.dtype, device=dev),
-                pred_pose=init_pose,
-            )
-            out = TrackOutput(
-                ob_in_cam=se3_inverse(init_pose),
-                pose_in_model=init_pose,
-                status=torch.full((), STATUS_OK, **i32),
-                num_matches=torch.zeros((), **i32),
-                num_ba_edges=torch.zeros((), **i32),
-            )
-            return st, out
+        if state.frame_count == 0:  # a host int: no read
+            return first_frame(state, feats, fd, init_pose)
 
         if phases is None:
-            phases = (
-                draw_phases((), rc.max_iter, M, state.rng),
-                draw_phases((P_PAIRS,), rc.max_iter, M, state.rng),
-            )
+            drawn = [(draw_phases((), rc.max_iter, M, g), draw_phases((P_PAIRS,), rc.max_iter, M, g))
+                     for g in state.rng]
+            phases = tuple(torch.stack(p) for p in zip(*drawn))
         phases_nb, phases_pairs = phases
 
         # ---- neighbour matching + RANSAC + Procrustes init ----------------
@@ -270,10 +343,10 @@ def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
             max_normal_deg=fc.max_normal_neighbor,
             max_matches=M,
         )
-        pa = feats.pts[nb.idx_a]
-        pb = state.prev_pts[nb.idx_b]
-        na = feats.normals[nb.idx_a]
-        nbn = state.prev_normals[nb.idx_b]
+        pa = _take_rows(feats.pts, nb.idx_a)
+        pb = _take_rows(state.prev_pts, nb.idx_b)
+        na = _take_rows(feats.normals, nb.idx_a)
+        nbn = _take_rows(state.prev_normals, nb.idx_b)
         prior_nb = se3_compose(se3_inverse(state.prev_pose), pose_init)
         rr = ransac_pair(
             pa, pb, na, nbn, nb.valid, prior_nb,
@@ -283,7 +356,7 @@ def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
             **ransac_kw,
         )
         T_new_to_prev = refine_pose_on_inliers(pa, pb, rr.inliers)
-        pose_new = torch.where(rr.valid, se3_compose(state.prev_pose, T_new_to_prev), pose_init)
+        pose_new = _stream_select(rr.valid, se3_compose(state.prev_pose, T_new_to_prev), pose_init)
         fail = (~rr.valid) | (~roi_ok) | (n_feat < 5)
         # reinit gate: after a FAIL, demand reinit_min_matches inliers,
         # decaying by one per FAIL frame beyond a patience of 5
@@ -298,22 +371,23 @@ def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
         slots, sel_valid = select_ba_subset(state.kf_frame_id, state.kf_pose, pose_new, n_pool_sel)
 
         def app(pool, new):
-            return torch.cat([pool[slots], new[None]], dim=0)
+            return torch.cat([_take_rows(pool, slots), new[:, None]], dim=1)
 
+        sel_col = sel_valid[..., None]
         ba_desc = app(state.kf_desc, feats.desc)
         ba_pts = app(state.kf_pts, feats.pts)
         ba_nrm = app(state.kf_normals, feats.normals)
-        ba_kpv = torch.cat([state.kf_kp_valid[slots] & sel_valid[:, None], feats.valid[None]])
+        ba_kpv = torch.cat([_take_rows(state.kf_kp_valid, slots) & sel_col, feats.valid[:, None]], dim=1)
         ba_pose = app(state.kf_pose, pose_new)
-        ba_valid = torch.cat([sel_valid, (~fail)[None]])
+        ba_valid = torch.cat([sel_valid, (~fail)[:, None]], dim=1)
         dense_compact = stack_frame_dense(
             app(state.kf_dsrc, fd.src),
-            torch.cat([state.kf_dvalid[slots] & sel_valid[:, None], fd.valid[None]]),
+            torch.cat([_take_rows(state.kf_dvalid, slots) & sel_col, fd.valid[:, None]], dim=1),
             app(state.kf_dlin, fd.lin),
             app(state.kf_tchan, fd.tchan),
         )
-        pool_slot_of = torch.cat([slots, torch.full((1,), -1, dtype=slots.dtype, device=dev)])
-        pairs = pairs_on(dev)
+        pool_slot_of = torch.cat([slots, torch.full((S, 1), -1, dtype=slots.dtype, device=dev)], dim=1)
+        pairs = pairs_on(dev, S)
         pair_i, pair_j = pairs[:2]
         bm, mpa, mpb, edge_valid, n_edges_new = ba_pair_section(
             ba_desc, ba_pts, ba_nrm, ba_kpv, ba_pose, ba_valid,
@@ -321,10 +395,12 @@ def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
         )
         no_ba = n_edges_new <= cfg.bundle.min_fm_edges_newframe
 
-        fail_h, no_ba_h = torch.stack([fail, no_ba]).tolist()  # device-to-host read 2 of 3
-        ba_rejected = torch.zeros((), dtype=torch.bool, device=dev)
+        # ---- BA solve for the streams that need one (lax.cond under vmap)
+        run = ~(fail | no_ba)
+        any_run, all_run = torch.stack([run.any(), run.all()]).tolist()  # device-to-host read 1 of 2
+        ba_rejected = torch.zeros_like(run)
         ba_out_poses = ba_pose
-        if not (fail_h or no_ba_h):
+        if any_run:
             inputs = GraphInputs(
                 poses=ba_pose,
                 frame_valid=ba_valid,
@@ -335,13 +411,20 @@ def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
                 K_lowres=K_low,
             )
             ba_out_poses, ba_rejected, _ = optimize_pose_graph_verified(inputs, cfg.bundle, p2p=cfg.p2p)
+            if not all_run:
+                ba_out_poses = _stream_select(run, ba_out_poses, ba_pose)
+                ba_rejected = ba_rejected & run
         no_ba = no_ba | ba_rejected  # a rejected solve keeps the Procrustes pose
-        pose_final = state.prev_pose if fail_h else ba_out_poses[new_idx]
+        pose_final = _stream_select(fail, state.prev_pose, ba_out_poses[:, new_idx])
 
         # scatter optimized keyframe poses back into the pool
-        kf_pose = state.kf_pose.clone()
-        keep = sel_valid[:, None, None]
-        kf_pose[slots] = torch.where(keep, ba_out_poses[:n_pool_sel], state.kf_pose[slots])
+        pool_index = (torch.arange(S, device=dev)[:, None] * Kp + slots).reshape(-1)
+        kf_pose_sel = _take_rows(state.kf_pose, slots)
+        kf_pose = state.kf_pose.reshape(S * Kp, 4, 4).index_copy(
+            0, pool_index,
+            _stream_select(sel_valid.reshape(-1), ba_out_poses[:, :n_pool_sel].reshape(-1, 4, 4),
+                           kf_pose_sel.reshape(-1, 4, 4)),
+        ).reshape(S, Kp, 4, 4)
         status = torch.where(
             fail, STATUS_FAIL, torch.where(no_ba, STATUS_NO_BA, STATUS_OK)
         ).to(torch.int32)
@@ -352,42 +435,50 @@ def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
             st.kf_frame_id, st.kf_pose, pose_final, n_feat, status == STATUS_OK,
             cfg.keyframe.min_feat_num, cfg.keyframe.min_rot,
         )
-        if bool(admit):  # device-to-host read 3 of 3
+        any_admit, all_admit = torch.stack([admit.any(), admit.all()]).tolist()  # read 2 of 2
+        if any_admit:
+            sel = None if all_admit else admit
             new_slot = eviction_slot(st.kf_frame_id, st.kf_pose)
-            st = _admit_keyframe(st, feats, pose_final, fd, frame_id=st.frame_count, slot=new_slot)
+            frame_id = torch.full((S,), state.frame_count, dtype=torch.int32, device=dev)
+            st_new = _admit_keyframe(st, feats, pose_final, fd, frame_id, new_slot, admit=sel)
             if fc.map_points:
                 # absorb the new keyframe's verified BA edges into the landmark
                 # track table (reference updateFramePairMapPoints)
-                mp = st.mappoints
+                mp = st_new.mappoints
                 for p in new_pairs:
                     pool_pos = int(pair_i_np[p])
                     m = MatchResult(
-                        idx_a=bm.idx_a[p], idx_b=bm.idx_b[p],
-                        valid=edge_valid[p] & sel_valid[pool_pos],
+                        idx_a=bm.idx_a[:, p], idx_b=bm.idx_b[:, p],
+                        valid=edge_valid[:, p] & sel_valid[:, pool_pos, None],
                     )
-                    mp = update_mappoints(mp, slots[pool_pos], new_slot, m)
-                st = st._replace(mappoints=mp)
+                    mp = update_mappoints(mp, slots[:, pool_pos], new_slot, m)
+                st_new = st_new._replace(mappoints=mp)
+            if sel is not None:
+                st_new = st_new._replace(mappoints=MapPointTable(
+                    *(_stream_select(admit, a, b) for a, b in zip(st_new.mappoints, st.mappoints))
+                ))
+            st = st_new
 
         # ---- prev update (skipped on FAIL: the reference forgets the frame)
-        if not fail_h:
-            st = _set_prev(st, feats, pose_final)
+        st = _set_prev(st, feats, pose_final, keep=~fail)
 
         # constant-velocity update: delta re-estimated on a normal OK frame,
         # identity on the recovery frame, held during FAIL; the prediction
         # advances by delta every frame
         is_fail = status == STATUS_FAIL
         eye = torch.eye(4, dtype=pose_final.dtype, device=dev)
-        delta_ok = torch.where(
-            state.fail_streak == 0, se3_compose(pose_final, se3_inverse(state.prev_pose)), eye
+        delta_ok = _stream_select(
+            state.fail_streak == 0, se3_compose(pose_final, se3_inverse(state.prev_pose)),
+            eye.expand(S, 4, 4),
         )
-        new_delta = torch.where(is_fail, state.prev_delta, delta_ok)
-        new_pred = torch.where(
+        new_delta = _stream_select(is_fail, state.prev_delta, delta_ok)
+        new_pred = _stream_select(
             is_fail,
             se3_compose(state.prev_delta, state.pred_pose),
             se3_compose(new_delta, pose_final),
         )
         st = st._replace(
-            frame_count=st.frame_count + 1,
+            frame_count=state.frame_count + 1,
             last_status=status,
             need_reinit=is_fail,
             fail_streak=torch.where(is_fail, st.fail_streak + 1, 0).to(torch.int32),

@@ -72,7 +72,8 @@ class Tracker:
             init_pose = np.eye(4, dtype=np.float32)
         pose = _upload(np.asarray(init_pose, np.float32), self.device)
         if phases is not None:
-            phases = tuple(torch.as_tensor(np.array(p), device=self.device) for p in phases)
+            phases = tuple(torch.as_tensor(p if isinstance(p, torch.Tensor) else np.array(p), device=self.device)
+                           for p in phases)
         self.state, out = self._step(self.state, obs, pose, phases)
         self.outputs.append(out)
         return out

@@ -3,9 +3,16 @@
 Counterpart of bundletrack_tpu/tracker/state.py (reference: src/Frame.h,
 src/Bundler.h).  The fields and shapes are the JAX package's, except that
 the JAX PRNG key becomes `rng`, an explicit torch.Generator on the state's
-device that draws the RANSAC phases.  `state_from_numpy` and
-`state_to_numpy` carry a state across as numpy arrays, so both trackers can
-start from the same state.
+device that draws the RANSAC phases, and that `frame_count` is a host int:
+the step branches on the first frame without reading the device.
+
+A fleet's state (parallel/fleet.py) is the same NamedTuple with a leading
+stream axis S on every tensor and a tuple of S generators.  Its streams
+advance in lockstep, all starting at frame 0, so they share one host
+`frame_count`, as every stream of the JAX fleet has the same count.
+
+`state_from_numpy` / `state_to_numpy` and their fleet forms carry a state
+across as numpy arrays, so both trackers can start from the same state.
 """
 
 from __future__ import annotations
@@ -57,13 +64,13 @@ class TrackerState(NamedTuple):
     # landmark memory
     mappoints: MapPointTable
     # bookkeeping
-    frame_count: torch.Tensor  # [] int32
+    frame_count: int  # frames seen; a host int (the JAX state's [] int32)
     last_status: torch.Tensor  # [] int32
     need_reinit: torch.Tensor  # [] bool
     fail_streak: torch.Tensor  # [] int32: consecutive FAIL frames
     prev_delta: torch.Tensor  # [4, 4] constant-velocity delta
     pred_pose: torch.Tensor  # [4, 4] prediction for the next frame
-    rng: torch.Generator  # draws the RANSAC phases
+    rng: torch.Generator  # draws the RANSAC phases; a fleet has one per stream
 
 
 class TrackOutput(NamedTuple):
@@ -110,7 +117,7 @@ def init_tracker_state(cfg: TrackerConfig, H: int, W: int, device, seed: int = 0
         prev_pose=eye.clone(),
         prev_valid=torch.zeros((), **b),
         mappoints=init_mappoints(cfg.shapes.max_landmarks, Kp, N, device=device),
-        frame_count=torch.zeros((), **i32),
+        frame_count=0,
         last_status=torch.full((), STATUS_OK, **i32),
         need_reinit=torch.zeros((), **b),
         fail_streak=torch.zeros((), **i32),
@@ -142,6 +149,22 @@ def state_from_numpy(arrays: dict, device, seed: int = 0) -> TrackerState:
     each leaf as a numpy array).  `mappoints` may be a dict or any object
     with `obs` and `rev`.  Keys the port has no field for (the JAX PRNG
     key) are ignored; the generator is seeded with `seed`."""
+    return _from_numpy(arrays, device, _generator(torch.device(device), seed))
+
+
+def fleet_state_from_numpy(arrays: dict, device, seed: int = 0) -> TrackerState:
+    """A fleet state from numpy arrays with a leading stream axis, such as
+    the leaves of the JAX package's fleet state.  Every stream must be at
+    the same frame; stream s's generator is seeded with seed + s."""
+    counts = np.asarray(arrays["frame_count"]).reshape(-1)
+    if np.any(counts != counts[0]):
+        raise ValueError(f"the fleet's streams advance together; frame counts {counts.tolist()} differ")
+    arrays = dict(arrays, frame_count=counts[0])
+    device = torch.device(device)
+    return _from_numpy(arrays, device, tuple(_generator(device, seed + s) for s in range(len(counts))))
+
+
+def _from_numpy(arrays: dict, device, rng) -> TrackerState:
     device = torch.device(device)
     fields = {}
     for name in TrackerState._fields:
@@ -154,20 +177,47 @@ def state_from_numpy(arrays: dict, device, seed: int = 0) -> TrackerState:
             fields[name] = MapPointTable(
                 obs=_tensor_from_numpy(obs, device), rev=_tensor_from_numpy(rev, device)
             )
+        elif name == "frame_count":
+            fields[name] = int(val)
         else:
             fields[name] = _tensor_from_numpy(val, device)
-    return TrackerState(**fields, rng=_generator(device, seed))
+    return TrackerState(**fields, rng=rng)
 
 
 def state_to_numpy(state: TrackerState) -> dict:
     """The state's tensors as numpy arrays keyed by field name (bf16 as
-    ml_dtypes.bfloat16, the dtype JAX uses); the generator is left out."""
+    ml_dtypes.bfloat16, the dtype JAX uses, and frame_count as an int32
+    array shaped as the JAX field: [] for one stream, [S] for a fleet); the
+    generator is left out."""
     out = {}
     for name, val in state._asdict().items():
         if name == "rng":
             continue
         if name == "mappoints":
             out[name] = {"obs": _tensor_to_numpy(val.obs), "rev": _tensor_to_numpy(val.rev)}
+        elif name == "frame_count":
+            out[name] = np.full(state.last_status.shape, val, np.int32)
         else:
             out[name] = _tensor_to_numpy(val)
     return out
+
+
+fleet_state_to_numpy = state_to_numpy
+
+
+def add_stream_axis(state: TrackerState) -> TrackerState:
+    """One stream's state as a fleet of one (views, no copies)."""
+    return state._replace(
+        **{n: v[None] for n, v in state._asdict().items() if isinstance(v, torch.Tensor)},
+        mappoints=MapPointTable(state.mappoints.obs[None], state.mappoints.rev[None]),
+        rng=(state.rng,),
+    )
+
+
+def drop_stream_axis(state: TrackerState) -> TrackerState:
+    """A fleet of one's state as one stream's state."""
+    return state._replace(
+        **{n: v[0] for n, v in state._asdict().items() if isinstance(v, torch.Tensor)},
+        mappoints=MapPointTable(state.mappoints.obs[0], state.mappoints.rev[0]),
+        rng=state.rng[0],
+    )

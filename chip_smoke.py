@@ -46,8 +46,18 @@
    `apps.run_tracking --dataset nocs`, then `apps.eval_nocs --noise_trans
    0.02 --seed 0`; bars: 0 missing, IoU25 > 90, 5deg5cm > 70, matcher
    launches = tracked frames; the NOCS mask fills timed alone.
-9. Prints one JSON line describing every kernel (the matcher's launches
-   summed over phases 3, 5, 7 and 8), the card's line, and as its last
+9. Fleet phase: 8 streams of differently seeded rendered 480x640
+   sequences through the fleet step (parallel/fleet.py) for 12 frames on
+   the default TrackerConfig; every stream must meet the tracker phase's
+   bars, stream 0 must match a single-stream Tracker given the same RANSAC
+   phases (FLEET_VS_SINGLE_*), and the matcher must launch once per fleet
+   frame, not once per stream.  The matcher is held to its plain version
+   on the fleet's own table, the 8 streams' K=16 BA tables stacked as
+   [128, 512, 256] with 960 pairs (a `mutual` row may differ only at a
+   column near tie, as in phase 2), and timed there with its bound.  Then aggregate frames/s at S = 1, 4 and 8 on
+   bench.py's tracking configuration (`fleet_bench.fleet_row`).
+10. Prints one JSON line describing every kernel (the matcher's launches
+   summed over phases 3, 5, 7, 8 and 9), the card's line, and as its last
    line {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and the last line is not
@@ -80,8 +90,17 @@ NOCS_IOU25_MIN, NOCS_5D5CM_MIN = 90.0, 70.0  # tests/test_e2e_parity.py::TestE2E
 DIST_ATOL = 1e-4  # the bf16-product dot summed in another order: ~1e-6 on O(1) distances
 # The gate is bit-identical and the kernel deterministic, so `mutual` may
 # differ only where a column minimum is a near tie (a dist difference of
-# ~1e-6 flips it): at most this many of the P*N = 61440 rows, each logged.
+# ~1e-6 flips it): each differing row must be one, its distance within
+# DIST_ATOL of the best other row of its column, and there may be at most
+# this many per 61440 rows (P*N at P=120), each logged.
 MUTUAL_MAX_DIFF_ROWS = 8
+
+FLEET_STREAMS, FLEET_FRAMES = 8, 12
+# stream 0 of the fleet against a single-stream Tracker with the same
+# phases: batched products and the solver's scatter-adds sum in another
+# order on the card (the tolerance of the port's trajectory against JAX's)
+FLEET_VS_SINGLE_ROT_DEG, FLEET_VS_SINGLE_TRANS_M = 0.01, 1e-4
+FLEET_RATE_FRAMES = 5  # timed fleet frames per S in the frames/s rows
 
 # Published peaks of one H100 SXM (dense): HBM bytes/s and bf16 tensor-core
 # FLOP/s; and the f32 instruction rate outside the tensor cores, 132 SMs x
@@ -162,7 +181,22 @@ def kernel_inputs(table, lfnet_table):
     }
 
 
-def check_kernel(name, got, ref) -> float:
+def near_tie_gap(table, pi, pj, gates, p: int, i: int, j: int) -> float:
+    """How far row i's gated distance to column j lies from the smallest
+    other row of column j, in pair p (the plain version's arithmetic)."""
+    from bundletrack_tpu_torch.kernels import matching as km
+
+    a, b = int(pi[p]), int(pj[p])
+    desc, world, wnrm, valid = table
+    gated = km.gated_distances(desc[a:a + 1], desc[b:b + 1], world[a:a + 1], world[b:b + 1],
+                               wnrm[a:a + 1], wnrm[b:b + 1], valid[a:a + 1], valid[b:b + 1], **gates)[0]
+    col = gated[:, j].clone()
+    row_val = float(col[i])
+    col[i] = km.BIG
+    return abs(float(col.min()) - row_val)
+
+
+def check_kernel(name, got, ref, table, pi, pj, gates) -> float:
     """Holds the kernel's results to the plain version's; returns the largest
     |dist| difference on rows with a candidate."""
     import torch
@@ -180,11 +214,15 @@ def check_kernel(name, got, ref) -> float:
     log(f"kernel[{name}]: rows with candidate {float(has_k.float().mean()):.4f}  "
         f"mutual {int(mm.sum())} vs plain {int(rm.sum())}  rows that differ {len(diff_rows)}  "
         f"best_b equal on mutual rows {same_b}  max |dist diff| {err:.3e}")
+    worst_gap = 0.0
     for p, i in diff_rows:
+        gap = near_tie_gap(table, pi, pj, gates, p, i, int(rb[p, i]))
+        worst_gap = max(worst_gap, gap)
         log(f"  mutual differs at pair {p} row {i}: kernel ({bool(mm[p, i])}, best_b {int(bb[p, i])}, "
             f"dist {float(dd[p, i]):.7g})  plain ({bool(rm[p, i])}, best_b {int(rb[p, i])}, "
-            f"dist {float(rd[p, i]):.7g})")
-    if not same_b or err > DIST_ATOL or len(diff_rows) > MUTUAL_MAX_DIFF_ROWS:
+            f"dist {float(rd[p, i]):.7g}); column near tie, gap {gap:.3e}")
+    max_rows = MUTUAL_MAX_DIFF_ROWS * -(-dd.numel() // 61440)
+    if not same_b or err > DIST_ATOL or len(diff_rows) > max_rows or worst_gap > DIST_ATOL:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     if not bool((bb[~has_k] == 0).all()):
         raise AssertionError(f"{name}: a row without a candidate has best_b != 0")
@@ -200,9 +238,25 @@ def check_kernel(name, got, ref) -> float:
             raise AssertionError("exact_ties: the kernel differs from the plain version")
         if not bool((bb[has_k] % 2 == 0).all()):
             raise AssertionError("exact_ties: a tie did not go to the first index")
-    if name in ("rendered", "half_invalid", "exact_ties", "lfnet") and int(mm.sum()) < 1000:
+    if name in ("rendered", "half_invalid", "exact_ties", "lfnet", "fleet") and int(mm.sum()) < 1000:
         raise AssertionError(f"{name}: too few mutual matches")
     return err
+
+
+def matcher_bound(K: int, N: int, D: int, P: int):
+    """The least time for the matcher's work on a [K, N, D] table with P
+    pairs: the largest of bytes, bf16 products and the epilogue's f32
+    instructions.  Returns (ms, term)."""
+    in_bytes = K * N * D * 4 + 2 * K * N * 3 * 4 + K * N + 2 * P * 4  # table, geometry, valid, pairs
+    out_bytes = P * N * (4 + 4 + 1)
+    terms = {
+        "bytes": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+        "bf16 products": 2 * P * N * N * D / BF16_FLOP_PER_S * 1e3,
+        "gate instructions": GATE_INSTR_PER_CANDIDATE * P * N * N / F32_INSTR_PER_S * 1e3,
+    }
+    term = max(terms, key=terms.get)
+    log(f"bound terms at K={K} P={P}: " + ", ".join(f"{k} {v:.5f} ms" for k, v in terms.items()))
+    return terms[term], term
 
 
 def kernel_phase(seq, cfg, device, lf_cfg, lfnet) -> dict:
@@ -230,7 +284,7 @@ def kernel_phase(seq, cfg, device, lf_cfg, lfnet) -> dict:
         got = km.fused_mutual_match_pairs(*args, pi, pj, **gates)
         ref = km.fused_mutual_match_pairs_reference(*args, pi, pj, **gates)
         torch.cuda.synchronize()
-        max_err = max(max_err, check_kernel(name, got, ref))
+        max_err = max(max_err, check_kernel(name, got, ref, args, pi, pj, gates))
 
     ms = cuda_median_ms(lambda: km.fused_mutual_match_pairs(*table, pi, pj, **gates))
     plain_ms = cuda_median_ms(lambda: km.fused_mutual_match_pairs_reference(*table, pi, pj, **gates))
@@ -241,17 +295,7 @@ def kernel_phase(seq, cfg, device, lf_cfg, lfnet) -> dict:
     dot_ms = cuda_median_ms(lambda: torch.bmm(a, bt))
     log(f"yardstick: torch.bmm on the gathered bf16 operands (dot only) {dot_ms:.4f} ms")
 
-    # the least time for the same work: the largest of three terms
-    in_bytes = K * N * D * 4 + 2 * K * N * 3 * 4 + K * N + 2 * P * 4  # table, geometry, valid, pairs
-    out_bytes = P * N * (4 + 4 + 1)
-    terms = {
-        "bytes": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
-        "bf16 products": 2 * P * N * N * D / BF16_FLOP_PER_S * 1e3,
-        "gate instructions": GATE_INSTR_PER_CANDIDATE * P * N * N / F32_INSTR_PER_S * 1e3,
-    }
-    term = max(terms, key=terms.get)
-    bound_ms = terms[term]
-    log("bound terms: " + ", ".join(f"{k} {v:.5f} ms" for k, v in terms.items()))
+    bound_ms, term = matcher_bound(K, N, D, P)
     log(f"kernel fused_mutual_match_pairs at K={K} P={P} N={N} D={D}: {ms:.4f} ms  plain {plain_ms:.4f} ms  "
         f"bound {bound_ms:.5f} ms ({term})  {100 * bound_ms / ms:.1f} % of bound")
     return {
@@ -549,6 +593,114 @@ def nocs_phase(seq, card: str) -> int:
     return launches
 
 
+def fleet_phase(cfg, card: str) -> int:
+    """The fleet step on 8 differently seeded streams, its matcher on the
+    fleet's table, and the fleet's frames/s at S = 1, 4, 8."""
+    import torch
+
+    from bundletrack_tpu_torch import fleet_bench
+    from bundletrack_tpu_torch.cardrun import H, W, cuda_median_ms
+    from bundletrack_tpu_torch.data import render_synthetic_sequence
+    from bundletrack_tpu_torch.eval.metrics import adds_auc, pose_errors
+    from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.matcher_bench import ba_table
+    from bundletrack_tpu_torch.parallel import fleet_observation, init_fleet_state, make_fleet_step
+    from bundletrack_tpu_torch.ransac.ransac import draw_phases
+    from bundletrack_tpu_torch.tracker.driver import Tracker
+
+    S, F = FLEET_STREAMS, FLEET_FRAMES
+    t0 = time.perf_counter()
+    n_render = max(K_BA, F)  # the BA table of the kernel check takes K_BA frames
+    render = lambda s: render_synthetic_sequence(num_frames=n_render, H=H, W=W, seed=s, orbit_deg_per_frame=3.0)  # noqa: E731
+    with ThreadPoolExecutor(max_workers=S) as pool:
+        seqs = list(pool.map(render, range(S)))
+    log(f"fleet: rendered {S} sequences of {n_render} frames at {H}x{W} in {time.perf_counter() - t0:.1f} s")
+
+    # the RANSAC phases of every stream and frame, drawn as each stream's
+    # generator would draw them, so the single-stream run gets the same
+    rc, M, P = cfg.ransac, cfg.shapes.max_matches, P_PAIRS
+    gens = [torch.Generator(device="cuda").manual_seed(s) for s in range(S)]
+    phases = [None] + [
+        tuple(torch.stack(p) for p in zip(*[(draw_phases((), rc.max_iter, M, g),
+                                             draw_phases((P,), rc.max_iter, M, g)) for g in gens]))
+        for _ in range(1, F)
+    ]
+    init_pose = np.stack([np.linalg.inv(q.ob_in_cam[0]) for q in seqs]).astype(np.float32)
+    step = make_fleet_step(cfg, H, W)
+    state = init_fleet_state(cfg, H, W, S)  # the card, by default
+    ip = torch.as_tensor(init_pose, device="cuda")
+    km.launches = 0  # count only this path's launches
+    outs, frame_ms = [], []
+    for f in range(F):
+        obs = fleet_observation(*(np.stack([getattr(q, k)[f] for q in seqs]) for k in ("gray", "depth", "mask")),
+                                np.stack([q.K for q in seqs]), "cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, out = step(state, obs, ip, phases[f])
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t1) * 1e3)
+        outs.append((out.ob_in_cam.cpu().numpy(), out.status.cpu().numpy()))
+    launches = km.launches
+    if launches != F - 1:
+        raise AssertionError(f"fleet: matcher launches {launches} != fleet frames tracked {F - 1}")
+    model_pts = (np.random.RandomState(0).rand(500, 3).astype(np.float32) - 0.5) * 0.2
+    for s in range(S):
+        poses = [outs[f][0][s] for f in range(F)]
+        statuses = [int(outs[f][1][s]) for f in range(F)]
+        errs = [pose_errors(p, seqs[s].ob_in_cam[f]) for f, p in enumerate(poses)]
+        rot, trans = max(e[0] for e in errs), max(e[1] for e in errs)
+        auc = adds_auc(poses, list(seqs[s].ob_in_cam[:F]), model_pts)
+        log(f"fleet: stream {s}: statuses {statuses}, worst rotation {rot:.4f} deg, worst translation "
+            f"{trans * 1e3:.3f} mm, ADD-S AUC {auc:.2f}")
+        if any(statuses) or not all(np.all(np.isfinite(p)) for p in poses):
+            raise AssertionError(f"fleet: stream {s}: not every frame is OK with a finite pose")
+        if rot >= 1.0 or trans >= 0.005 or auc <= 95.0:
+            raise AssertionError(f"fleet: stream {s}: pose bars missed (rotation < 1 deg, translation < 5 mm, "
+                                 "ADD-S AUC > 95)")
+
+    single = Tracker(cfg, H, W)
+    worst = (0.0, 0.0)
+    for f in range(F):
+        q = seqs[0]
+        ph = None if phases[f] is None else tuple(p[0] for p in phases[f])
+        out = single.process_frame(q.gray[f], q.depth[f], q.mask[f], q.K, init_pose[0], phases=ph)
+        rot, trans = pose_errors(out.ob_in_cam.cpu().numpy(), outs[f][0][0])
+        worst = (max(worst[0], rot), max(worst[1], trans))
+    log(f"fleet: stream 0 against a single-stream Tracker with the same phases: max {worst[0]:.3e} deg, "
+        f"{worst[1]:.3e} m (tolerance {FLEET_VS_SINGLE_ROT_DEG} deg, {FLEET_VS_SINGLE_TRANS_M} m)")
+    if worst[0] >= FLEET_VS_SINGLE_ROT_DEG or worst[1] >= FLEET_VS_SINGLE_TRANS_M:
+        raise AssertionError("fleet: stream 0 differs from the single-stream tracker")
+    med = float(np.median(frame_ms[3:]))
+    log(f"fleet: {S} streams at {H}x{W}, default TrackerConfig: median fleet frame {med:.2f} ms "
+        f"({S * 1e3 / med:.2f} frames/s aggregate) over frames 3..{F - 1}, first {frame_ms[0]:.1f} ms, "
+        f"matcher launches {launches} for {F - 1} tracked fleet frames [{card}]")
+
+    # the matcher on the fleet's own table: the 8 streams' BA tables as one
+    # [S*K, N, D] table, stream s's pairs at s*K + i
+    tables = [ba_table(q, cfg, "cuda") for q in seqs]
+    table = tuple(torch.cat([t[0][k] for t in tables]) for k in range(4))
+    pi, pj = (torch.cat([t[1][k] + s * K_BA for s, t in enumerate(tables)]) for k in range(2))
+    fc = cfg.feature_corres
+    gates = dict(max_dist=fc.max_dist_no_neighbor, max_normal_deg=fc.max_normal_no_neighbor)
+    got = km.fused_mutual_match_pairs(*table, pi, pj, **gates)
+    ref = km.fused_mutual_match_pairs_reference(*table, pi, pj, **gates)
+    torch.cuda.synchronize()
+    Kf, N, D = table[0].shape
+    diff_rows = int((got[2] != ref[2]).sum())
+    err = check_kernel("fleet", got, ref, table, pi, pj, gates)
+    ms = cuda_median_ms(lambda: km.fused_mutual_match_pairs(*table, pi, pj, **gates))
+    plain_ms = cuda_median_ms(lambda: km.fused_mutual_match_pairs_reference(*table, pi, pj, **gates), runs=5)
+    bound_ms, term = matcher_bound(Kf, N, D, len(pi))
+    log(f"kernel fused_mutual_match_pairs on the fleet table K={Kf} P={len(pi)} N={N} D={D}: {ms:.4f} ms  "
+        f"plain {plain_ms:.4f} ms  bound {bound_ms:.5f} ms ({term})  {100 * bound_ms / ms:.1f} % of bound, "
+        f"max |dist diff| {err:.3e}, mutual rows that differ {diff_rows} [{card}]")
+
+    seq = fleet_bench.render(H, W, fleet_bench.WARMUP + FLEET_RATE_FRAMES + fleet_bench.PROFILED + 1)
+    for n in (1, 4, 8):
+        fleet_bench.fleet_row(fleet_bench.bench_config(H, W), seq, n, FLEET_RATE_FRAMES, card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -590,9 +742,12 @@ def main() -> int:
     t0 = time.perf_counter()
     nocs_launches = nocs_phase(seq, card)
     phase_s["nocs chain"] = time.perf_counter() - t0
-    kernel["launches"] = classical_launches + cli_launches + vos_chain_launches + nocs_launches
+    t0 = time.perf_counter()
+    fleet_launches = fleet_phase(cfg, card)
+    phase_s["fleet"] = time.perf_counter() - t0
+    kernel["launches"] = classical_launches + cli_launches + vos_chain_launches + nocs_launches + fleet_launches
     log(f"matcher launches: classical tracker phase {classical_launches}, lfnet CLI phase {cli_launches}, "
-        f"VOS chain {vos_chain_launches}, NOCS chain {nocs_launches}")
+        f"VOS chain {vos_chain_launches}, NOCS chain {nocs_launches}, fleet {fleet_launches}")
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     log(json.dumps({"kernels": [kernel]}))

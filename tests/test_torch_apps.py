@@ -128,7 +128,7 @@ def test_cli_chain_meets_the_pose_bars(seq_dir, tmp_path, frontend, extra):
 
 @pytest.mark.parametrize("args,raw", [(["--dataset", "nocs"], {}), ([], {"use_6pack_datalist": True})],
                          ids=["flag", "auto"])
-def test_nocs_dataset_raises(tmp_path, args, raw):
+def test_nocs_dataset_selects_the_nocs_loader(tmp_path, args, raw):
     """--dataset nocs, or `auto` on a use_6pack_datalist config, reads the
     directory with the NOCS loader (tests/test_torch_nocs.py runs the
     chain); on an empty directory it raises for want of NOCS frames or of

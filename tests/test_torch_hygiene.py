@@ -2,8 +2,9 @@
 
 Checked two ways: statically, on every import statement of the port and of
 chip_smoke.py; and at run time, in a fresh interpreter that imports the port,
-tracks two frames on the CPU with each frontend, runs the CLI chain, run_vos
-on two frames, and one NOCS frame through run_tracking --dataset nocs.
+tracks two frames on the CPU with each frontend and with a fleet of two
+streams, runs the CLI chain, run_vos on two frames, and one NOCS frame
+through run_tracking --dataset nocs.
 """
 
 import ast
@@ -59,6 +60,13 @@ cfg = TrackerConfig(bundle=BundleConfig(max_ba_frames=3), keyframe=KeyframeConfi
 seq = render_synthetic_sequence(num_frames=2, H=60, W=80)
 poses, statuses, _ = track_sequence(cfg, seq, device="cpu")
 assert poses.shape == (2, 4, 4) and np.all(np.isfinite(poses)), poses
+from bundletrack_tpu_torch.parallel import fleet_observation, init_fleet_state, make_fleet_step
+fleet, step = init_fleet_state(cfg, 60, 80, 2, device="cpu"), make_fleet_step(cfg, 60, 80)
+for f in range(2):
+    fleet, out = step(fleet, fleet_observation(*(np.stack([a[f]] * 2) for a in (seq.gray, seq.depth, seq.mask)),
+                                               np.stack([seq.K] * 2), "cpu"),
+                      torch.from_numpy(np.stack([np.linalg.inv(seq.ob_in_cam[0])] * 2).astype(np.float32)))
+assert out.ob_in_cam.shape == (2, 4, 4) and bool(torch.isfinite(out.ob_in_cam).all())
 import os, tempfile, yaml
 from bundletrack_tpu_torch.apps import eval_ycbineoat, run_tracking
 from bundletrack_tpu_torch.data.export import export_ycbineoat_sequence
@@ -106,7 +114,8 @@ def test_scan_covers_every_module_of_the_slices():
                    "data/native_io.py", "data/ycbineoat.py", "data/export.py", "apps/run_tracking.py",
                    "apps/eval_ycbineoat.py", "tracker/bundler.py", "kernels/matching.py",
                    "utils/flax_layers.py", "models/vos.py", "eval/vos_eval.py", "apps/run_vos.py", "ops/masks.py",
-                   "data/nocs.py", "eval/nocs_protocol.py", "apps/eval_nocs.py", "vos_bench.py"):
+                   "data/nocs.py", "eval/nocs_protocol.py", "apps/eval_nocs.py", "vos_bench.py",
+                   "parallel/fleet.py", "fleet_bench.py"):
         assert os.path.join("bundletrack_tpu_torch", module) in scanned, module
 
 

@@ -84,7 +84,7 @@ def test_masks(frames):
         assert got == ref
 
 
-def test_nocs_mask_fill_not_ported():
+def test_nocs_mask_fill_equals_jax():
     """The NOCS mask fill is ported now: the chain equals the JAX package's,
     on a rendered mask and on an empty one (tests/test_torch_nocs.py holds
     each fill to JAX on more masks)."""
