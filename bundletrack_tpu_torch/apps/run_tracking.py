@@ -41,8 +41,8 @@ def main(argv=None):
     )
     parser.add_argument(
         "--lfnet-ckpt", default=LFNET_CKPT,
-        help="trained LF-Net weights (npz) for --frontend lfnet; a relative path "
-             "resolves against the repo root",
+        help="trained LF-Net weights (npz) for --frontend lfnet; a relative path opens "
+             "relative to the working directory (default: the shipped checkpoints/lfnet_params.npz)",
     )
     parser.add_argument("--device", default=None,
                         help="torch device; the CUDA card when not given")
@@ -66,10 +66,9 @@ def main(argv=None):
     if cfg.frontend.kind == "lfnet":
         from bundletrack_tpu_torch.frontend.lfnet import load_params_npz, make_lfnet_apply
 
-        ckpt = os.path.join(REPO_ROOT, args.lfnet_ckpt)  # an absolute path stays as it is
-        _, lf_params = load_params_npz(ckpt, cfg.frontend)
+        _, lf_params = load_params_npz(args.lfnet_ckpt, cfg.frontend)
         lfnet_apply = make_lfnet_apply(cfg.frontend, lf_params)
-        print(f"[run_tracking] lfnet frontend: {ckpt}", file=sys.stderr)
+        print(f"[run_tracking] lfnet frontend: {args.lfnet_ckpt}", file=sys.stderr)
 
     if dataset == "nocs":
         from bundletrack_tpu_torch.data.nocs import NocsLoader

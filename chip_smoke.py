@@ -28,7 +28,12 @@
    `apps.run_tracking --frontend lfnet` on the card, scores the pose files
    with `apps.eval_ycbineoat` and holds them to the bars of
    tests/test_e2e_parity.py (ADD-S AUC > 90, ADD AUC > 80); the matcher's
-   launch count must equal the number of tracked frames.
+   launch count must equal the number of tracked frames.  Then it rewrites
+   the frames with PNG row filters (rgb Paeth, depth and masks Sub), which
+   must decode to the same arrays, and runs the same chain on them: the
+   statuses must be the same and the poses the same within the card's
+   run-to-run tolerance; it logs read_png ms per 480x640 frame of each kind
+   and filter, and the app's wall time.
 6. VOS phase: propagates frame 0's mask through the 20 frames with the
    shipped width-96 weights (checkpoints/vos_params.npz) and the default
    SegmentationConfig (ref_num 9, history 48, sigma 8/21, T 0.05, a 60x80
@@ -56,9 +61,27 @@
    [128, 512, 256] with 960 pairs (a `mutual` row may differ only at a
    column near tie, as in phase 2), and timed there with its bound.  Then aggregate frames/s at S = 1, 4 and 8 on
    bench.py's tracking configuration (`fleet_bench.fleet_row`).
-10. Prints one JSON line describing every kernel (the matcher's launches
-   summed over phases 3, 5, 7, 8 and 9), the card's line, and as its last
-   line {"ok": true, "device": {...}}.
+10. Hard-world phase: bench.py's hard suite on the card, the five passes of
+   `hard_passes` (multi-shape, degraded depth and masks, 2x scale, fast
+   rotation) at 480x640 with 16 frames each, rendered in a process pool,
+   tracked with bench.py's tracking configuration (classical frontend) by
+   `eval.hard_suite.run_hard_suite`; bars: every pose finite, ADD-S AUC >
+   90 on cube, cylinder, lshape and fastrot (scale2x is recorded).
+11. FAIL-path phase: 48 frames of the tracker phase's sequence with frames
+   16-18 occluded (mask and depth empty), the default TrackerConfig; bars
+   of tests/test_long_sequence.py: the FAIL frames cover 16-18 and lie in
+   16..35, mean rotation error over frames 38-47 < 3 deg, terminal
+   translation error < 15 mm.
+12. Verify-reject phase: 10 frames with bundle.use_verification and a
+   1.25 mm threshold (the test's 5 mm at 120x160, scaled to the 480x640
+   pixel), which rejects every BA solve; bars of
+   tests/test_verification_e2e.py: every frame after the first NO_BA, none
+   FAIL, translation error < 10 mm.  In phases 10-12 the matcher launches
+   once per tracked frame, FAIL frames included (the BA pair section runs
+   on every frame after the first).
+13. Prints one JSON line describing every kernel (the matcher's launches
+   summed over phases 3, 5, 7-12), the card's line, and as its last line
+   {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and the last line is not
 printed.  Without a CUDA device, or without the package beside it, it fails.
@@ -68,17 +91,17 @@ from __future__ import annotations
 
 import contextlib
 import json
+import multiprocessing
 import os
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
 K_BA, P_PAIRS, N_KPTS, D_DESC = 16, 120, 512, 256
 NUM_FRAMES = 20
-LFNET_CKPT = "checkpoints/lfnet_params.npz"  # a relative path: the app resolves it against the repo root
 CLI_ADDS_AUC_MIN, CLI_ADD_AUC_MIN = 90.0, 80.0  # tests/test_e2e_parity.py
 # VOS on the 20 rendered 480x640 frames: the JAX package reaches mean IoU
 # 0.9685 and min 0.9623 there (on a CPU); the card must reach these bars,
@@ -94,6 +117,24 @@ DIST_ATOL = 1e-4  # the bf16-product dot summed in another order: ~1e-6 on O(1) 
 # DIST_ATOL of the best other row of its column, and there may be at most
 # this many per 61440 rows (P*N at P=120), each logged.
 MUTUAL_MAX_DIFF_ROWS = 8
+
+# a rerun of the same chain on the card: atomic scatter-adds sum in another
+# order from run to run (the fleet-vs-single tolerance below)
+RERUN_ROT_DEG, RERUN_TRANS_M = 0.01, 1e-4
+PNG_FILTERS = {"rgb": 4, "depth": 1, "masks": 1}  # Paeth for the colour frames, Sub for the rest
+
+HARD_FRAMES = 16  # bench.py's hard suite: hard_passes(H=480, W=640, num_frames=16)
+HARD_ADDS_AUC_MIN, HARD_BARRED = 90.0, ("cube", "cylinder", "lshape", "fastrot")
+# tests/test_long_sequence.py's occlusion, moved to the 48-frame sequence:
+# FAILs cover the occlusion and end within 18 frames of it, the tail's mean
+# rotation error and the terminal translation error stay small
+FAIL_FRAMES, OCCLUDED, FAIL_WINDOW = 48, (16, 17, 18), 18
+FAIL_TAIL_ROT_DEG, FAIL_TERMINAL_TRANS_M = 3.0, 0.015
+# tests/test_verification_e2e.py::test_reject_fires_and_reverts_cleanly: its
+# 5 mm threshold lies below the keypoint noise floor at 120x160; the floor
+# shrinks with the pixel, so at 480x640 the threshold is 5 mm x 160 / 640
+# (at 5 mm the card accepted one solve in ten at 480x640)
+VERIFY_FRAMES, VERIFY_DIST, VERIFY_TRANS_M = 10, 0.005 * 160 / 640, 0.010
 
 FLEET_STREAMS, FLEET_FRAMES = 8, 12
 # stream 0 of the fleet against a single-stream Tracker with the same
@@ -144,14 +185,34 @@ def timed_calls(cls, name: str):
         setattr(cls, name, original)
 
 
+@contextlib.contextmanager
+def recorded_calls(owner, name: str):
+    """Records the result of every call of owner.name; yields the list."""
+    original = getattr(owner, name)
+    results = []
+
+    def record(*args, **kwargs):
+        out = original(*args, **kwargs)
+        results.append(out)
+        return out
+
+    setattr(owner, name, record)
+    try:
+        yield results
+    finally:
+        setattr(owner, name, original)
+
+
 def build_kernels():
+    """Every CUDA kernel with nvcc and every host C source with the host
+    compiler, one compiler process per source, all started together."""
     from bundletrack_tpu_torch.kernels import build
 
-    sources = sorted(f for f in os.listdir(build.CSRC_DIR) if f.endswith(".cu"))
+    sources = sorted(f for f in os.listdir(build.CSRC_DIR) if f.endswith((".cu", ".c")))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
-        paths = list(pool.map(build.build, sources))
-    log(f"built {len(paths)} kernel source(s) in {time.perf_counter() - t0:.1f} s: {sources}")
+        paths = list(pool.map(lambda f: build.build_host(f) if f.endswith(".c") else build.build(f), sources))
+    log(f"built {len(paths)} source(s) in {time.perf_counter() - t0:.1f} s: {sources}")
 
 
 def kernel_inputs(table, lfnet_table):
@@ -414,7 +475,7 @@ def cli_phase(seq, card: str) -> int:
         with timed_calls(driver.Tracker, "process_frame") as frame_ms:
             km.launches = 0  # count only this path's launches
             t0 = time.perf_counter()
-            tracker = run_tracking.main([cfg_path, "--frontend", "lfnet", "--lfnet-ckpt", LFNET_CKPT])
+            tracker = run_tracking.main([cfg_path, "--frontend", "lfnet", "--lfnet-ckpt", run_tracking.LFNET_CKPT])
             chain_s = time.perf_counter() - t0
             launches = km.launches
 
@@ -433,7 +494,25 @@ def cli_phase(seq, card: str) -> int:
         model_pts = eval_ycbineoat.load_model_points(os.path.join(data_dir, "model", "points.xyz"))
         res = eval_ycbineoat.evaluate(pose_dir, gt_dir, model_pts)
 
+        # the same chain on the frames rewritten with PNG row filters
+        read_ms = rewrite_with_filters(data_dir)
+        out_f = os.path.join(root, "out_filtered")
+        cfg_f = write_config(root, data_dir, out_f)
+        km.launches = 0  # count only this path's launches
+        t0 = time.perf_counter()
+        tracker_f = run_tracking.main([cfg_f, "--frontend", "lfnet", "--lfnet-ckpt", run_tracking.LFNET_CKPT])
+        filtered_s = time.perf_counter() - t0
+        launches_f = km.launches
+        same_bytes, worst_rerun = 0, (0.0, 0.0)
+        for fid in ids:
+            a, b = (os.path.join(d, "poses", fid + ".txt") for d in (out_dir, out_f))
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                same_bytes += fa.read() == fb.read()
+            rot, trans = pose_errors(np.loadtxt(b), np.loadtxt(a))
+            worst_rerun = (max(worst_rerun[0], rot), max(worst_rerun[1], trans))
+
     statuses = [int(o.status) for o in tracker.outputs]
+    statuses_f = [int(o.status) for o in tracker_f.outputs]
     tracked = len(statuses) - 1
     med = steady_median(frame_ms)
     log(f"cli: statuses {statuses}")
@@ -444,12 +523,49 @@ def cli_phase(seq, card: str) -> int:
         f"{WARMUP_FRAMES}..{len(frame_ms) - 1}), first frame {frame_ms[0]:.1f} ms, whole app "
         f"{chain_s:.1f} s ({1e3 * chain_s / len(statuses):.1f} ms per frame with IO and start-up), "
         f"matcher launches {launches} [{card}]")
-    if launches != tracked:
-        raise AssertionError(f"cli: matcher launches {launches} != tracked frames {tracked}")
+    log("cli: read_png ms per 480x640 frame (median of 5 reads, decode only): " + ", ".join(
+        f"{kind} filter {ft} {ms:.2f}" for (kind, ft), ms in read_ms.items()) + f" [{card}]")
+    log(f"cli: the chain on the filtered frames: statuses {statuses_f}; whole app {filtered_s:.1f} s "
+        f"(filter 0: {chain_s:.1f} s); pose files byte-identical {same_bytes} of {len(ids)}, max difference "
+        f"{worst_rerun[0]:.3e} deg, {worst_rerun[1]:.3e} m; matcher launches {launches_f} [{card}]")
+    if launches != tracked or launches_f != tracked:
+        raise AssertionError(f"cli: matcher launches {launches} / {launches_f} != tracked frames {tracked}")
     if res["missing"] or res["ADDS_AUC"] <= CLI_ADDS_AUC_MIN or res["ADD_AUC"] <= CLI_ADD_AUC_MIN:
         raise AssertionError(f"cli: pose bars missed (ADD-S AUC > {CLI_ADDS_AUC_MIN}, "
                              f"ADD AUC > {CLI_ADD_AUC_MIN}): {res}")
-    return launches
+    if statuses_f != statuses or worst_rerun[0] >= RERUN_ROT_DEG or worst_rerun[1] >= RERUN_TRANS_M:
+        raise AssertionError("cli: the chain on filtered PNGs differs from the chain on filter-0 PNGs")
+    return launches + launches_f
+
+
+def rewrite_with_filters(data_dir: str) -> dict:
+    """Rewrites every frame of data_dir's rgb/, depth/ and masks/ with the
+    row filters of PNG_FILTERS, each decoding to the array it held; returns
+    read_png's ms on frame 0 of each kind, before and after, by (kind,
+    filter)."""
+    import statistics
+
+    from bundletrack_tpu_torch.data.native_io import read_png, write_png
+
+    def read_ms(path):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            read_png(path)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    ms = {}
+    for kind, ft in PNG_FILTERS.items():
+        paths = sorted(os.path.join(data_dir, kind, n) for n in os.listdir(os.path.join(data_dir, kind)))
+        ms[(kind, 0)] = read_ms(paths[0])
+        for path in paths:
+            img = read_png(path)
+            write_png(path, img, filter_type=ft)
+            if not np.array_equal(read_png(path), img):
+                raise AssertionError(f"cli: {path} decodes differently with filter {ft}")
+        ms[(kind, ft)] = read_ms(paths[0])
+    return ms
 
 
 def vos_phase(seq, card: str) -> dict:
@@ -701,6 +817,153 @@ def fleet_phase(cfg, card: str) -> int:
     return launches
 
 
+def hard_pass_specs(**kw) -> dict:
+    """hard_passes' calls of render_hard_sequence, as (args, kwargs) by
+    pass name, so each pass renders in a process of its own."""
+    from bundletrack_tpu_torch.data import hard_world
+
+    render = hard_world.render_hard_sequence
+    hard_world.render_hard_sequence = lambda *a, **k: (a, k)
+    try:
+        return hard_world.hard_passes(**kw)
+    finally:
+        hard_world.render_hard_sequence = render
+
+
+def render_new_phase_inputs():
+    """The hard passes and the FAIL-path sequence, rendered in parallel in
+    spawned processes (numpy on the host, ~0.6 s per 480x640 hard frame)."""
+    from bundletrack_tpu_torch.cardrun import H, W, render_main_sequence
+    from bundletrack_tpu_torch.data.hard_world import render_hard_sequence
+
+    specs = hard_pass_specs(H=H, W=W, num_frames=HARD_FRAMES)
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=len(specs) + 1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        hard = {name: pool.submit(render_hard_sequence, *a, **k) for name, (a, k) in specs.items()}
+        main_seq = pool.submit(render_main_sequence, FAIL_FRAMES)
+        passes = {name: f.result() for name, f in hard.items()}
+        seq = main_seq.result()
+    log(f"hard world: rendered {len(passes)} passes of {HARD_FRAMES} frames and a {FAIL_FRAMES}-frame "
+        f"sequence at {H}x{W} in {time.perf_counter() - t0:.1f} s")
+    return passes, seq
+
+
+def hard_world_phase(passes, card: str) -> int:
+    """bench.py's hard suite on the card: run_hard_suite on the five hard
+    passes with bench.py's tracking configuration."""
+    from bundletrack_tpu_torch import fleet_bench
+    from bundletrack_tpu_torch.cardrun import H, W
+    from bundletrack_tpu_torch.eval import hard_suite
+    from bundletrack_tpu_torch.kernels import matching as km
+
+    cfg = fleet_bench.bench_config(H, W)  # bench.py's tracking configuration, classical frontend
+    km.launches = 0  # count only this path's launches
+    t0 = time.perf_counter()
+    with recorded_calls(hard_suite, "track_sequence") as runs:
+        aucs = hard_suite.run_hard_suite(cfg, passes=passes, device="cuda")
+    track_s = time.perf_counter() - t0
+    launches = km.launches
+    tracked = sum(len(seq.gray) - 1 for seq in passes.values())
+    for (name, seq), (poses, statuses, _) in zip(passes.items(), runs):
+        rep = hard_suite.pass_report(poses, statuses, seq, hard_suite.PASS_SHAPES[name])
+        log(f"hard world: {name}: ADD-S AUC {aucs[name]:.2f}, statuses {statuses.tolist()} "
+            f"({int((statuses != 0).sum())} not OK), mean / max rotation error {rep['mean_rot_err_deg']:.2f} / "
+            f"{rep['max_rot_err_deg']:.2f} deg, mean / max translation error {rep['mean_trans_err_mm']:.2f} / "
+            f"{rep['max_trans_err_mm']:.2f} mm")
+        if not np.all(np.isfinite(poses)):
+            raise AssertionError(f"hard world: {name}: a pose is not finite")
+    log(f"hard world: bench config at {H}x{W}, {HARD_FRAMES} frames per pass: mean ADD-S AUC {aucs['mean']:.2f}; "
+        f"tracking {track_s:.1f} s; matcher launches {launches} for {tracked} tracked frames [{card}]")
+    if launches != tracked:
+        raise AssertionError(f"hard world: matcher launches {launches} != tracked frames {tracked}")
+    missed = {n: aucs[n] for n in HARD_BARRED if aucs[n] <= HARD_ADDS_AUC_MIN}
+    if missed:
+        raise AssertionError(f"hard world: ADD-S AUC bars missed (> {HARD_ADDS_AUC_MIN}): {missed}")
+    return launches
+
+
+def fail_path_phase(seq, card: str) -> int:
+    """An occlusion on the default configuration: the FAIL frames, the
+    reinit gate and the recovery after it, on the card."""
+    from bundletrack_tpu_torch.cardrun import H, W, timed_frames
+    from bundletrack_tpu_torch.config import TrackerConfig
+    from bundletrack_tpu_torch.eval.metrics import pose_errors
+    from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.tracker.driver import Tracker
+    from bundletrack_tpu_torch.tracker.state import STATUS_FAIL
+
+    mask, depth = seq.mask.copy(), seq.depth.copy()
+    for f in OCCLUDED:  # the object vanishes, as in tests/test_long_sequence.py
+        mask[f] = False
+        depth[f] = 0.0
+    seq = seq._replace(mask=mask, depth=depth)
+    tracker = Tracker(TrackerConfig(), H, W)
+    km.launches = 0  # count only this path's launches
+    poses, statuses, frame_ms = [], [], []
+    for _, out, ms in timed_frames(tracker, seq, range(len(seq.gray)), np.linalg.inv(seq.ob_in_cam[0])):
+        poses.append(out.ob_in_cam.cpu().numpy())
+        statuses.append(int(out.status))
+        frame_ms.append(ms)
+    launches = km.launches
+    errs = [pose_errors(p, seq.ob_in_cam[f]) for f, p in enumerate(poses)]
+    fails = {f for f, st in enumerate(statuses) if st == STATUS_FAIL}
+    window = set(range(OCCLUDED[0], OCCLUDED[-1] + FAIL_WINDOW))
+    tail = list(range(len(poses) - 10, len(poses)))
+    tail_rot = float(np.mean([errs[f][0] for f in tail]))
+    fail_ms = [frame_ms[f] for f in sorted(fails)]
+    log(f"fail path: statuses {statuses}")
+    log(f"fail path: FAIL frames {sorted(fails)} (must cover {list(OCCLUDED)} and lie in "
+        f"{min(window)}..{max(window)}); rotation error per frame " + " ".join(f"{e[0]:.2f}" for e in errs))
+    log(f"fail path: mean rotation error over frames {tail[0]}-{tail[-1]} {tail_rot:.4f} deg, terminal "
+        f"{errs[-1][0]:.4f} deg / {errs[-1][1] * 1e3:.3f} mm; median frame {np.median(frame_ms[1:]):.2f} ms, "
+        f"median FAIL frame {np.median(fail_ms) if fail_ms else float('nan'):.2f} ms; matcher launches {launches} "
+        f"for {len(poses) - 1} tracked frames [{card}]")
+    if not all(np.all(np.isfinite(p)) for p in poses):
+        raise AssertionError("fail path: a pose is not finite")
+    if launches != len(poses) - 1:
+        raise AssertionError(f"fail path: matcher launches {launches} != tracked frames {len(poses) - 1}")
+    if not set(OCCLUDED) <= fails <= window:
+        raise AssertionError(f"fail path: FAIL frames {sorted(fails)}")
+    if tail_rot >= FAIL_TAIL_ROT_DEG or errs[-1][1] >= FAIL_TERMINAL_TRANS_M:
+        raise AssertionError(f"fail path: no recovery (tail rotation < {FAIL_TAIL_ROT_DEG} deg, terminal "
+                             f"translation < {FAIL_TERMINAL_TRANS_M} m)")
+    return launches
+
+
+def verify_reject_phase(seq, card: str) -> int:
+    """use_verification with a threshold below the keypoint noise: every BA
+    solve is rejected and reverted, on the card."""
+    import dataclasses
+
+    from bundletrack_tpu_torch.cardrun import H, W
+    from bundletrack_tpu_torch.config import TrackerConfig
+    from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.tracker.driver import Tracker
+    from bundletrack_tpu_torch.tracker.state import STATUS_FAIL, STATUS_NO_BA
+
+    cfg = TrackerConfig()
+    cfg = cfg.replace(bundle=dataclasses.replace(cfg.bundle, use_verification=True, verify_dist_thresh=VERIFY_DIST))
+    tracker = Tracker(cfg, H, W)
+    init_pose = np.linalg.inv(seq.ob_in_cam[0])
+    km.launches = 0  # count only this path's launches
+    statuses, errs = [], []
+    for f in range(VERIFY_FRAMES):
+        out = tracker.process_frame(seq.gray[f], seq.depth[f], seq.mask[f], seq.K, init_pose)
+        pose = out.ob_in_cam.cpu().numpy()
+        statuses.append(int(out.status))
+        errs.append(float(np.linalg.norm(pose[:3, 3] - seq.ob_in_cam[f][:3, 3])) if np.all(np.isfinite(pose))
+                    else float("inf"))
+    launches = km.launches
+    log(f"verify reject: threshold {VERIFY_DIST * 1e3:.2f} mm: statuses {statuses}; max translation error "
+        f"{max(errs) * 1e3:.3f} mm; matcher launches {launches} [{card}]")
+    if launches != VERIFY_FRAMES - 1:
+        raise AssertionError(f"verify reject: matcher launches {launches} != tracked frames {VERIFY_FRAMES - 1}")
+    if any(st != STATUS_NO_BA for st in statuses[1:]) or STATUS_FAIL in statuses or max(errs) >= VERIFY_TRANS_M:
+        raise AssertionError(f"verify reject: bars missed (NO_BA after frame 0, no FAIL, translation < "
+                             f"{VERIFY_TRANS_M} m)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -745,9 +1008,25 @@ def main() -> int:
     t0 = time.perf_counter()
     fleet_launches = fleet_phase(cfg, card)
     phase_s["fleet"] = time.perf_counter() - t0
-    kernel["launches"] = classical_launches + cli_launches + vos_chain_launches + nocs_launches + fleet_launches
-    log(f"matcher launches: classical tracker phase {classical_launches}, lfnet CLI phase {cli_launches}, "
-        f"VOS chain {vos_chain_launches}, NOCS chain {nocs_launches}, fleet {fleet_launches}")
+    t0 = time.perf_counter()
+    passes, fail_seq = render_new_phase_inputs()
+    phase_s["hard world render"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hard_launches = hard_world_phase(passes, card)
+    phase_s["hard world"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fail_launches = fail_path_phase(fail_seq, card)
+    phase_s["fail path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verify_launches = verify_reject_phase(seq, card)
+    phase_s["verify reject"] = time.perf_counter() - t0
+    launches = {
+        "classical tracker phase": classical_launches, "lfnet CLI phase (filter 0 and filtered PNGs)": cli_launches,
+        "VOS chain": vos_chain_launches, "NOCS chain": nocs_launches, "fleet": fleet_launches,
+        "hard world": hard_launches, "fail path": fail_launches, "verify reject": verify_launches,
+    }
+    kernel["launches"] = sum(launches.values())
+    log("matcher launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     log(json.dumps({"kernels": [kernel]}))

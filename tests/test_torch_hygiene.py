@@ -3,8 +3,9 @@
 Checked two ways: statically, on every import statement of the port and of
 chip_smoke.py; and at run time, in a fresh interpreter that imports the port,
 tracks two frames on the CPU with each frontend and with a fleet of two
-streams, runs the CLI chain, run_vos on two frames, and one NOCS frame
-through run_tracking --dataset nocs.
+streams, runs the CLI chain, run_vos on two frames, one NOCS frame
+through run_tracking --dataset nocs, the hard suite and the frontend
+metrics on one tiny hard pass, and reads a Paeth-filtered PNG.
 """
 
 import ast
@@ -101,6 +102,17 @@ with tempfile.TemporaryDirectory() as root:
     run_tracking.main([os.path.join(root, "n.yml"), "--dataset", "nocs", "--max-frames", "1", "--device", "cpu"])
     eval_nocs.main(["--pred_dir", os.path.join(root, "nout", "poses"), "--gt_dir", gdir, "--model", model,
                     "--class_name", "camera"])
+from bundletrack_tpu_torch.data import render_hard_sequence
+from bundletrack_tpu_torch.eval import evaluate_frontend
+from bundletrack_tpu_torch.eval.hard_suite import run_hard_suite
+hard = render_hard_sequence("cube", num_frames=2, H=60, W=80)
+out = run_hard_suite(cfg, passes={"cube": hard}, device="cpu")
+assert set(out) == {"cube", "mean"}, out
+evaluate_frontend(hard, cfg.frontend, device="cpu")
+from bundletrack_tpu_torch.data.native_io import read_png, write_png
+with tempfile.TemporaryDirectory() as root:
+    write_png(os.path.join(root, "x.png"), (hard.gray[0] * 255).astype(np.uint8), filter_type=4)
+    assert np.array_equal(read_png(os.path.join(root, "x.png")), (hard.gray[0] * 255).astype(np.uint8))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax") or m == "bundletrack_tpu"
              or m.startswith("bundletrack_tpu."))
@@ -115,7 +127,8 @@ def test_scan_covers_every_module_of_the_slices():
                    "apps/eval_ycbineoat.py", "tracker/bundler.py", "kernels/matching.py",
                    "utils/flax_layers.py", "models/vos.py", "eval/vos_eval.py", "apps/run_vos.py", "ops/masks.py",
                    "data/nocs.py", "eval/nocs_protocol.py", "apps/eval_nocs.py", "vos_bench.py",
-                   "parallel/fleet.py", "fleet_bench.py"):
+                   "parallel/fleet.py", "fleet_bench.py", "data/hard_world.py", "data/pairs.py",
+                   "eval/hard_suite.py", "eval/frontend_eval.py"):
         assert os.path.join("bundletrack_tpu_torch", module) in scanned, module
 
 
