@@ -57,7 +57,7 @@ def load_model(checkpoint: str):
     if ckpt:
         raise NotImplementedError(
             f"--checkpoint {ckpt}: an orbax checkpoint directory; the port reads npz "
-            "weights only (orbax checkpoints come with training, ROADMAP item 15)"
+            "weights only (orbax checkpoints come with training, ROADMAP Queue 1, item 7)"
         )
     model, _ = init_vos(seed=0)
     print("[run_vos] WARNING: no --checkpoint given; using untrained weights "

@@ -52,7 +52,7 @@ class BundleConfig:
     """Pose-graph optimizer settings (reference: config bundle.*)."""
 
     num_iter_outer: int = 7
-    num_iter_inner: int = 5  # PCG inner iterations (the "pcg" backend is not ported yet)
+    num_iter_inner: int = 5  # PCG inner iterations (solver_backend "pcg")
     window_size: int = 2  # parsed, not used (the keyframe pool takes its role)
     max_ba_frames: int = 16
     subset_selection_method: str = "greedy_rot"
@@ -60,16 +60,16 @@ class BundleConfig:
     min_fm_edges_newframe: int = 5
     image_downscale: int = 4  # dense point-to-plane term resolution divisor
     dense_src_capacity: int = 4096  # compacted valid source pixels per frame
-    solver_backend: str = "cholesky"  # only "cholesky" is ported
+    solver_backend: str = "cholesky"  # or "pcg" (solver/pcg.py); any other name raises
     lm_lambda: float = 1e-6
     w_sparse: float = 1.0
     w_dense_depth: float = 1.0
-    w_dense_color: float = 0.0  # the photometric term is not ported yet
+    w_dense_color: float = 0.0  # photometric term; needs intensity (GraphInputs.dense), so none in the tracker
     early_stop_delta: float = 0.0  # > 0: a graph stops once its max |delta| is below it
     use_verification: bool = False
     verify_dist_thresh: float = 0.02
     verify_percent_thresh: float = 0.05
-    ba_mesh_axis: str = ""  # multi-device pair sharding; not ported yet
+    ba_mesh_axis: str = ""  # multi-device pair sharding; not ported yet (ROADMAP Queue 1, item 8)
 
 
 @_frozen

@@ -1,6 +1,6 @@
 """Fleet tracking on the card: aggregate frames/s of S streams in one step.
 
-    python3 -m bundletrack_tpu_torch.fleet_bench
+    python3 -m bundletrack_tpu_torch.fleet_bench [--frontend classical|lfnet|both]
 
 Mirrors bench.py's `_bench_fleet` and `_bench_fleet_table`: S identical
 streams (the same rendered sequence in every stream; each stream draws its
@@ -11,7 +11,11 @@ synchronised at both ends.  Two tables:
 - 480x640, S = 1, 4, 8, on bench.py's tracking configuration
   (dense_src_capacity 2048, early_stop_delta 0.005);
 - 240x320, S = 1, 4, 8, 16, 32 (dense_src_capacity 1024, early_stop_delta
-  0.005), bench.py's stream-scaling table.
+  0.005), bench.py's stream-scaling table;
+- with `--frontend lfnet` (or `both`), LF-Net rows: 480x640, S = 1, 4, 8, on
+  the 480x640 configuration with frontend.kind "lfnet" and the shipped
+  weights (checkpoints/lfnet_params.npz) at 400x400 in bf16; the S masked
+  crops go through one batched forward per fleet frame.
 
 Each row also gives: kernel launches per fleet frame and the device's busy
 share, from torch.profiler over two more fleet frames; the device-to-host
@@ -28,7 +32,9 @@ Needs a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import collections
+import dataclasses
 import json
 import os
 import time
@@ -37,7 +43,7 @@ import warnings
 import numpy as np
 import torch
 
-from bundletrack_tpu_torch.cardrun import card_line
+from bundletrack_tpu_torch.cardrun import card_line, shipped_lfnet
 from bundletrack_tpu_torch.config import BundleConfig, ShapeConfig, TrackerConfig
 from bundletrack_tpu_torch.data import render_synthetic_sequence
 from bundletrack_tpu_torch.kernels import matching as km
@@ -46,6 +52,7 @@ from bundletrack_tpu_torch.parallel import fleet_observation, init_fleet_state, 
 WARMUP, TIMED, PROFILED = 2, 12, 2
 TABLE_480 = (1, 4, 8)
 TABLE_240 = (1, 4, 8, 16, 32)
+TABLE_LFNET = (1, 4, 8)  # 480x640
 
 
 def bench_config(H: int, W: int) -> TrackerConfig:
@@ -58,6 +65,12 @@ def bench_config(H: int, W: int) -> TrackerConfig:
     )
 
 
+def lfnet_config(H: int, W: int) -> TrackerConfig:
+    """bench_config with the LF-Net frontend at its defaults (400x400, bf16)."""
+    cfg = bench_config(H, W)
+    return cfg.replace(frontend=dataclasses.replace(cfg.frontend, kind="lfnet"))
+
+
 def render(H: int, W: int, frames: int):
     return render_synthetic_sequence(num_frames=frames, H=H, W=W, orbit_deg_per_frame=2.0)
 
@@ -65,10 +78,10 @@ def render(H: int, W: int, frames: int):
 class FleetRun:
     """S identical streams of `seq` on the card, one fleet frame at a time."""
 
-    def __init__(self, cfg, seq, S: int):
+    def __init__(self, cfg, seq, S: int, lfnet_apply=None):
         F, H, W = seq.gray.shape
         self.S, self.seq = S, seq
-        self.step = make_fleet_step(cfg, H, W)
+        self.step = make_fleet_step(cfg, H, W, lfnet_apply=lfnet_apply)
         self.state = init_fleet_state(cfg, H, W, S)  # the card
         self.device = self.state.kf_pose.device
         self.init_pose = torch.as_tensor(
@@ -98,9 +111,9 @@ class FleetRun:
         return dt
 
 
-def fleet_row(cfg, seq, S: int, timed_frames: int, card: str) -> dict:
+def fleet_row(cfg, seq, S: int, timed_frames: int, card: str, lfnet_apply=None) -> dict:
     """One row of the table; see the module docstring."""
-    run = FleetRun(cfg, seq, S)
+    run = FleetRun(cfg, seq, S, lfnet_apply)
     run.timed(WARMUP)
     torch.cuda.reset_peak_memory_stats()
     km.launches = 0
@@ -129,7 +142,7 @@ def fleet_row(cfg, seq, S: int, timed_frames: int, card: str) -> dict:
 
     H, W = seq.gray.shape[1:]
     row = {
-        "H": H, "W": W, "S": S, "timed_frames": timed_frames,
+        "frontend": cfg.frontend.kind, "H": H, "W": W, "S": S, "timed_frames": timed_frames,
         "aggregate_fps": fps, "fleet_frame_ms": 1e3 * dt / timed_frames,
         "launches_per_fleet_frame": len(kernels) / PROFILED,
         "device_ms_per_fleet_frame": busy_ms / PROFILED,
@@ -141,7 +154,7 @@ def fleet_row(cfg, seq, S: int, timed_frames: int, card: str) -> dict:
         "frames_not_ok": run.not_ok,
         "card": card,
     }
-    print(f"fleet {H}x{W} S={S:2d}: {fps:8.3f} frames/s aggregate, {row['fleet_frame_ms']:8.2f} ms per fleet "
+    print(f"fleet {cfg.frontend.kind} {H}x{W} S={S:2d}: {fps:8.3f} frames/s aggregate, {row['fleet_frame_ms']:8.2f} ms per fleet "
           f"frame, {row['launches_per_fleet_frame']:.0f} launches, device {row['device_ms_per_fleet_frame']:.2f} ms "
           f"(busy {100 * row['device_busy']:.1f} %), {reads} reads, peak {peak_mib:.1f} MiB, matcher "
           f"{matcher_per_frame:g} per frame, {run.not_ok} stream-frames not OK [{card}]", flush=True)
@@ -149,18 +162,28 @@ def fleet_row(cfg, seq, S: int, timed_frames: int, card: str) -> dict:
     return row
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--frontend", choices=("classical", "lfnet", "both"), default="classical")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("fleet_bench: no CUDA device is available")
     card = card_line()
     print(f"card: {card}", flush=True)
     n = WARMUP + TIMED + PROFILED + 1
-    seq480, seq240 = render(480, 640, n), render(240, 320, n)
+    seq480 = render(480, 640, n)
     result = collections.defaultdict(list)
-    for S in TABLE_480:
-        result["table_480x640"].append(fleet_row(bench_config(480, 640), seq480, S, TIMED, card))
-    for S in TABLE_240:
-        result["table_240x320"].append(fleet_row(bench_config(240, 320), seq240, S, TIMED, card))
+    if args.frontend in ("classical", "both"):
+        seq240 = render(240, 320, n)
+        for S in TABLE_480:
+            result["table_480x640"].append(fleet_row(bench_config(480, 640), seq480, S, TIMED, card))
+        for S in TABLE_240:
+            result["table_240x320"].append(fleet_row(bench_config(240, 320), seq240, S, TIMED, card))
+    if args.frontend in ("lfnet", "both"):
+        cfg = lfnet_config(480, 640)
+        apply = shipped_lfnet(cfg)
+        for S in TABLE_LFNET:
+            result["table_lfnet_480x640"].append(fleet_row(cfg, seq480, S, TIMED, card, apply))
     print(json.dumps({"card": card, **result}))
     return 0
 

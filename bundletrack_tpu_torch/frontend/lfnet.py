@@ -234,8 +234,10 @@ class LFNet(nn.Module):
 
 
 class LFNetApply(nn.Module):
-    """The frontend contract of the tracker step: one crop [S, S, 1] in,
-    one FrontendOutput in crop coordinates out.  The forward runs under
+    """The frontend contract of the tracker step: one crop [side, side, 1]
+    in, one FrontendOutput in crop coordinates out; or a stack of crops
+    [S, side, side, 1] (the fleet's streams), one batched forward, and a
+    FrontendOutput with a leading stream axis.  The forward runs under
     torch.inference_mode(); `.to(device)` moves the weights."""
 
     def __init__(self, net: LFNet):
@@ -243,10 +245,13 @@ class LFNetApply(nn.Module):
         self.net = net.eval()
 
     def forward(self, crop):
+        single = crop.dim() == 3
+        photos = crop.permute(2, 0, 1)[None] if single else crop.permute(0, 3, 1, 2)
         with torch.inference_mode():
-            out = self.net(crop.permute(2, 0, 1)[None])
-        return FrontendOutput(kpts_uv=out.kpts_uv[0], scores=out.scores[0],
-                              desc=out.desc[0], valid=out.valid[0])
+            out = self.net(photos)
+        if single:
+            out = FrontendOutput(*(t[0] for t in out))
+        return out
 
 
 def make_lfnet_apply(cfg: FrontendConfig, params) -> LFNetApply:

@@ -14,7 +14,9 @@ Two frontends:
     package runs the classical frontend instead.
 
 Inputs may carry a leading stream axis: the classical frontend detects on
-every stream at once, the LF-Net branch crops and runs the net per stream.
+every stream at once; the LF-Net branch crops every stream's ROI in one
+batched resample, runs one forward on the [S, side, side, 1] stack and maps
+each stream's keypoints back through its own box.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ def extract_frame_features(
     normals_map: torch.Tensor,  # [..., H, W, 3]
     valid_map: torch.Tensor,  # [..., H, W] bool
     cfg: FrontendConfig,
-    lfnet_apply=None,  # callable(crop [S, S, 1]) -> FrontendOutput in crop coords
+    lfnet_apply=None,  # callable(crops [..., side, side, 1]) -> FrontendOutput in crop coords
 ) -> FrameFeatures:
     if cfg.kind == "classical":
         out = harris_keypoints_and_descriptors(
@@ -82,25 +84,21 @@ def extract_frame_features(
         raise ValueError(f"unknown frontend.kind {cfg.kind!r}")
     if lfnet_apply is None:
         raise ValueError("frontend.kind='lfnet' needs the net: pass lfnet_apply")
-    if gray.dim() == 3:  # a stream axis: one crop and forward per stream
-        per_stream = [
-            extract_frame_features(*args, cfg, lfnet_apply)
-            for args in zip(gray, mask, points_map, normals_map, valid_map)
-        ]
-        return FrameFeatures(*(torch.stack(f) for f in zip(*per_stream)))
 
     # learned path: the crop is masked first, as the reference zeroes every
-    # pixel outside the segmentation (Frame::invalidatePixelsByMask)
+    # pixel outside the segmentation (Frame::invalidatePixelsByMask).  With
+    # a stream axis: one box per stream, one batched crop, one forward.
     umin, umax, vmin, vmax, nonempty = mask_roi(mask)
     crop, scale, ou, ov = crop_resize_square(
         torch.where(mask, gray, torch.zeros_like(gray)), (umin, umax, vmin, vmax), cfg.input_size
     )
     out = lfnet_apply(crop[..., None])
     kpts_orig = keypoints_to_original(out.kpts_uv, scale, ou, ov)
-    # keep only keypoints inside the mask
-    H, W = mask.shape
-    ui = torch.clamp(torch.round(kpts_orig[:, 0]).long(), 0, W - 1)
-    vi = torch.clamp(torch.round(kpts_orig[:, 1]).long(), 0, H - 1)
-    ok = out.valid & mask[vi, ui] & nonempty
+    # keep only keypoints inside their own stream's mask
+    H, W = mask.shape[-2:]
+    ui = torch.clamp(torch.round(kpts_orig[..., 0]).long(), 0, W - 1)
+    vi = torch.clamp(torch.round(kpts_orig[..., 1]).long(), 0, H - 1)
+    in_mask = torch.gather(mask.reshape(-1, H * W), 1, (vi * W + ui).reshape(-1, ui.shape[-1])).reshape(ui.shape)
+    ok = out.valid & in_mask & nonempty[..., None]
     out = FrontendOutput(kpts_uv=kpts_orig, scores=out.scores, desc=out.desc, valid=ok)
     return _lift_to_3d(out, points_map, normals_map, valid_map)

@@ -48,6 +48,12 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor | None = 
     return _to_mat(R, t)
 
 
+def umeyama_rigid(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor | None = None):
+    """Weighted Kabsch without scale, under the JAX package's other name
+    (the reference estimates no scale)."""
+    return kabsch(src, dst, weights)
+
+
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(
         [

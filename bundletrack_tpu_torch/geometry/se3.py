@@ -180,3 +180,13 @@ def rotation_geodesic_distance(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tens
 def se3_update_left(delta: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """Left-multiplicative GN update T <- exp(delta) @ T."""
     return se3_exp(delta) @ T
+
+
+def orthonormalize(R: torch.Tensor) -> torch.Tensor:
+    """Project [..., 3, 3] near-rotations onto SO(3) by symmetric
+    orthogonalization, U diag(1, 1, det(U V^T)) V^T (invariant to the
+    SVD's sign conventions)."""
+    u, _, vt = torch.linalg.svd(R)
+    det = torch.linalg.det(u @ vt)
+    d = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    return (u * d[..., None, :]) @ vt

@@ -32,18 +32,20 @@ def dilate_mask(mask: torch.Tensor, iterations: int = 1, ksize: int = 5) -> torc
 
 
 def mask_roi(mask: torch.Tensor):
-    """Bounding box (umin, umax, vmin, vmax) of a mask plus `nonempty`; the
-    full image when the mask is empty."""
+    """Bounding box (umin, umax, vmin, vmax) of each mask [..., H, W] plus
+    `nonempty`, each of shape [...]; the full image where a mask is empty.
+    Every reduction runs over the last two axes, so a leading stream axis
+    gives one box per stream."""
     H, W = mask.shape[-2], mask.shape[-1]
-    any_col = torch.any(mask, dim=-2)
-    any_row = torch.any(mask, dim=-1)
+    any_col = torch.any(mask, dim=-2)  # [..., W]
+    any_row = torch.any(mask, dim=-1)  # [..., H]
     u_idx = torch.arange(W, dtype=torch.int32, device=mask.device)
     v_idx = torch.arange(H, dtype=torch.int32, device=mask.device)
-    nonempty = torch.any(mask)
-    umin = torch.where(nonempty, torch.min(torch.where(any_col, u_idx, 1 << 30)), 0)
-    umax = torch.where(nonempty, torch.max(torch.where(any_col, u_idx, -1)), W - 1)
-    vmin = torch.where(nonempty, torch.min(torch.where(any_row, v_idx, 1 << 30)), 0)
-    vmax = torch.where(nonempty, torch.max(torch.where(any_row, v_idx, -1)), H - 1)
+    nonempty = torch.any(any_row, dim=-1)
+    umin = torch.where(nonempty, torch.amin(torch.where(any_col, u_idx, 1 << 30), dim=-1), 0)
+    umax = torch.where(nonempty, torch.amax(torch.where(any_col, u_idx, -1), dim=-1), W - 1)
+    vmin = torch.where(nonempty, torch.amin(torch.where(any_row, v_idx, 1 << 30), dim=-1), 0)
+    vmax = torch.where(nonempty, torch.amax(torch.where(any_row, v_idx, -1), dim=-1), H - 1)
     return umin, umax, vmin, vmax, nonempty
 
 

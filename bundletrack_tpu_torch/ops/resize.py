@@ -25,22 +25,24 @@ _F32_EPS = float(torch.finfo(torch.float32).eps)
 
 def _weight_mat(in_size: int, out_size: int, inv_scale: torch.Tensor,
                 shift: torch.Tensor) -> torch.Tensor:
-    """[in_size, out_size] triangle-kernel weights, antialiased.
+    """[..., in_size, out_size] triangle-kernel weights, antialiased.
 
     `inv_scale` is input pixels per output pixel, `shift` the translation
-    times `inv_scale`; both 0-dim f32 tensors.  Output sample j reads input
-    position (j + 0.5) * inv_scale - shift - 0.5."""
+    times `inv_scale`; both f32 tensors of the batch shape [...] (0-dim for
+    one image).  Output sample j reads input position
+    (j + 0.5) * inv_scale - shift - 0.5."""
     dev = inv_scale.device
-    kernel_scale = torch.clamp(inv_scale, min=1.0)
-    sample_f = (torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5) * inv_scale - shift - 0.5
-    x = torch.abs(sample_f[None, :] - torch.arange(in_size, dtype=torch.float32, device=dev)[:, None])
+    kernel_scale = torch.clamp(inv_scale, min=1.0)[..., None, None]
+    sample_f = ((torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5) * inv_scale[..., None]
+                - shift[..., None] - 0.5)  # [..., out]
+    x = torch.abs(sample_f[..., None, :] - torch.arange(in_size, dtype=torch.float32, device=dev)[:, None])
     x = x / kernel_scale
     weights = torch.clamp(1.0 - torch.abs(x), min=0.0)
-    total = torch.sum(weights, dim=0, keepdim=True)
+    total = torch.sum(weights, dim=-2, keepdim=True)
     safe = torch.where(total != 0, total, torch.ones_like(total))
     weights = torch.where(torch.abs(total) > 1000.0 * _F32_EPS, weights / safe, torch.zeros_like(weights))
     inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return torch.where(inside[None, :], weights, torch.zeros_like(weights))
+    return torch.where(inside[..., None, :], weights, torch.zeros_like(weights))
 
 
 @functools.lru_cache(maxsize=64)
@@ -72,9 +74,12 @@ def resize_bilinear(img: torch.Tensor, out_hw) -> torch.Tensor:
 def crop_resize_square(img: torch.Tensor, roi, out_size: int):
     """Crop ROI (umin, umax, vmin, vmax), pad to square, resize to out_size.
 
-    img is [H, W] or [C, H, W].  Returns (resized [..., out, out], scale,
-    offset_u, offset_v), where original pixel = keypoint_px / scale + offset.
-    Every entry of `roi` may be a device tensor."""
+    Every entry of `roi` may be a device tensor of a batch shape [...]: a
+    0-dim ROI crops img [H, W] or [C, H, W]; an ROI of shape [S] crops each
+    of img [S, H, W] or [S, C, H, W] by its own box (the fleet's streams).
+    Returns (resized [..., out, out], scale, offset_u, offset_v), the last
+    three of the ROI's shape, where original pixel = keypoint_px / scale +
+    offset."""
     umin, umax, vmin, vmax = roi
     H, W = img.shape[-2], img.shape[-1]
     w = (umax - umin + 1).to(torch.float32)
@@ -86,15 +91,18 @@ def crop_resize_square(img: torch.Tensor, roi, out_size: int):
     inv_scale = torch.ones_like(scale) / scale
     translate_u = -umin.to(torch.float32) * scale
     translate_v = -vmin.to(torch.float32) * scale
-    wv = _weight_mat(H, out_size, inv_scale, translate_v * inv_scale)
-    wu = _weight_mat(W, out_size, inv_scale, translate_u * inv_scale)
-    out = torch.matmul(torch.matmul(wv.transpose(0, 1), img.to(torch.float32)), wu)
+    # the batch axes of the weights, then one axis per channel axis of img
+    lead = (*scale.shape, *([1] * (img.dim() - 2 - scale.dim())))
+    wv = _weight_mat(H, out_size, inv_scale, translate_v * inv_scale).reshape(*lead, H, out_size)
+    wu = _weight_mat(W, out_size, inv_scale, translate_u * inv_scale).reshape(*lead, W, out_size)
+    out = torch.matmul(torch.matmul(wv.transpose(-1, -2), img.to(torch.float32)), wu)
     return out, scale, umin.to(torch.float32), vmin.to(torch.float32)
 
 
 def keypoints_to_original(kpts_uv: torch.Tensor, scale, offset_u, offset_v) -> torch.Tensor:
-    """Inverse of crop_resize_square for [..., 2] keypoints (reference
+    """Inverse of crop_resize_square for [..., N, 2] keypoints, with scale
+    and offsets of the batch shape [...] (reference
     FeatureManager.cpp:884-898)."""
-    u = kpts_uv[..., 0] / scale + offset_u
-    v = kpts_uv[..., 1] / scale + offset_v
+    u = kpts_uv[..., 0] / scale[..., None] + offset_u[..., None]
+    v = kpts_uv[..., 1] / scale[..., None] + offset_v[..., None]
     return torch.stack([u, v], dim=-1)

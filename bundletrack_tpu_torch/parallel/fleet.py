@@ -10,8 +10,9 @@ the matcher kernel.
 
 The streams advance in lockstep: all start at frame 0 and every step
 advances every stream, as in the JAX fleet, which has no per-stream reset
-either.  Sharding over several GPUs (`mesh`) and the LF-Net frontend in the
-fleet are not ported yet (ROADMAP item 14).
+either.  With the LF-Net frontend (`lfnet_apply`), the S masked ROI crops
+go through one batched forward per fleet frame.  Sharding the streams over
+several GPUs (`mesh`) is not ported yet (ROADMAP Queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from bundletrack_tpu_torch.tracker.state import (
     init_tracker_state,
 )
 
-NOT_PORTED = "is not ported yet (ROADMAP item 14)"
+NOT_PORTED = "is not ported yet (ROADMAP Queue 1, item 8: multi-GPU)"
 
 
 def init_fleet_state(cfg: TrackerConfig, H: int, W: int, num_streams: int, device=None,
@@ -55,12 +56,12 @@ def init_fleet_state(cfg: TrackerConfig, H: int, W: int, num_streams: int, devic
 def make_fleet_step(cfg: TrackerConfig, H: int, W: int, mesh=None, lfnet_apply=None):
     """The multi-stream step: (state[S], obs[S], init_pose [S,4,4],
     phases=None) -> (state, TrackOutput[S]); `phases` as
-    tracker/bundler.make_batched_track_frame takes them."""
+    tracker/bundler.make_batched_track_frame takes them.  `lfnet_apply`
+    (frontend/lfnet.make_lfnet_apply) is the LF-Net frontend, needed when
+    cfg.frontend.kind is "lfnet"; it takes the S crops as one stack."""
     if mesh is not None:
         raise NotImplementedError(f"make_fleet_step: sharding streams over a device mesh {NOT_PORTED}")
-    if lfnet_apply is not None or cfg.frontend.kind != "classical":
-        raise NotImplementedError(f"make_fleet_step: the LF-Net frontend in the fleet {NOT_PORTED}")
-    return make_batched_track_frame(cfg, H, W)
+    return make_batched_track_frame(cfg, H, W, lfnet_apply)
 
 
 def fleet_observation(gray, depth, mask, K, device) -> FrameObservation:

@@ -3,7 +3,9 @@
 Counterpart of bundletrack_tpu/solver/gauss_newton.py (reference:
 src/cuda/Solver/SolverBundling.cu solveBundlingStub).  At <= 16 frames the
 normal equations are a 96x96 system: the dense blocked H is formed and
-solved by an equilibrated, Levenberg-damped Cholesky.  Frames with
+solved by an equilibrated, Levenberg-damped Cholesky (solver_backend
+"cholesky"), or by num_iter_inner block-Jacobi PCG steps ("pcg",
+solver/pcg.py, the reference's own inner solver).  Frames with
 free_mask=False keep their pose (gauge fixing).  Leading axes batch
 independent graphs: the fleet solves every stream's graph at once, with
 batched Cholesky factorizations of [S, 6K, 6K].  Without early stopping
@@ -17,7 +19,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from bundletrack_tpu_torch.geometry.se3 import se3_update_left
-from bundletrack_tpu_torch.solver.dense_p2p import CompactDense, dense_p2p_from_compact
+from bundletrack_tpu_torch.solver.dense_p2p import (
+    CompactDense,
+    DenseFrames,
+    compact_dense_frames,
+    dense_p2p_from_compact,
+)
+from bundletrack_tpu_torch.solver.pcg import solve_normal_equations_pcg
 from bundletrack_tpu_torch.solver.residuals import (
     SparseCorres,
     sparse_normal_equations,
@@ -32,8 +40,9 @@ class GraphInputs(NamedTuple):
     frame_valid: torch.Tensor  # [..., K] bool
     free_mask: torch.Tensor  # [..., K] bool — False = gauge-fixed
     corres: SparseCorres
-    dense_compact: Optional[CompactDense] = None
+    dense_compact: Optional[CompactDense] = None  # the tracker's tables, or `dense` compacted
     K_lowres: Optional[torch.Tensor] = None
+    dense: Optional[DenseFrames] = None  # a standalone solve's frames, compacted once per solve
 
 
 def _apply_gauge(H, g, free):
@@ -71,12 +80,18 @@ def solve_normal_equations_cholesky(H, g, lm_lambda: float):
     return torch.where(ok[..., None], delta, torch.zeros_like(delta)).reshape(*batch, K, 6)
 
 
+def _dense_weighted(cfg) -> bool:
+    return cfg.w_dense_depth > 0.0 or cfg.w_dense_color > 0.0
+
+
 def build_normal_equations(inputs: GraphInputs, cfg, p2p=None):
-    """Assemble H/g/cost from the sparse and dense terms (one linearization)."""
+    """Assemble H/g/cost from the sparse and dense terms (one linearization);
+    the dense term reads inputs.dense_compact (optimize_pose_graph compacts
+    inputs.dense into it once per solve)."""
     H, g, cost, _ = sparse_normal_equations(
         inputs.poses, inputs.corres, robust_delta=cfg.robust_delta, weight=cfg.w_sparse
     )
-    if inputs.dense_compact is not None and cfg.w_dense_depth > 0.0:
+    if inputs.dense_compact is not None and _dense_weighted(cfg):
         kw = {}
         if p2p is not None:
             kw = dict(
@@ -93,23 +108,25 @@ def build_normal_equations(inputs: GraphInputs, cfg, p2p=None):
             inputs.K_lowres,
             robust_delta=cfg.robust_delta,
             weight=cfg.w_dense_depth,
+            weight_color=cfg.w_dense_color,
             **kw,
         )
         H, g, cost = H + Hd, g + gd, cost + cd
     return H, g, cost
 
 
-def _check_supported(cfg) -> None:
-    if cfg.solver_backend != "cholesky":
-        raise NotImplementedError(f"bundle.solver_backend={cfg.solver_backend!r}: only 'cholesky' is ported")
-    if cfg.w_dense_color > 0.0:
-        raise NotImplementedError("bundle.w_dense_color > 0: the photometric term is not ported yet")
+def _check_backend(cfg) -> None:
+    """The JAX package treats any name but "pcg" as Cholesky; the port
+    refuses a name it does not know (ROADMAP Queue 3.3)."""
+    if cfg.solver_backend not in ("cholesky", "pcg"):
+        raise ValueError(f"bundle.solver_backend={cfg.solver_backend!r}: expected 'cholesky' or 'pcg'")
 
 
 def optimize_pose_graph(inputs: GraphInputs, cfg, p2p=None):
     """Run the robust-GN outer loop; returns (poses [..., K, 4, 4], info dict).
 
-    cfg: BundleConfig; p2p: P2PConfig dense-association gates (None =
+    cfg: BundleConfig (solver_backend "cholesky" or "pcg", anything else
+    raises ValueError); p2p: P2PConfig dense-association gates (None =
     reference defaults).  Leading axes of the inputs batch independent
     graphs (the fleet's streams).
 
@@ -121,7 +138,10 @@ def optimize_pose_graph(inputs: GraphInputs, cfg, p2p=None):
     running all num_iter_outer iterations masked, without reads, at 1 and 8
     streams (PERF.md).  info["iterations"] counts each graph's updates.
     """
-    _check_supported(cfg)
+    _check_backend(cfg)
+    if inputs.dense_compact is None and inputs.dense is not None and _dense_weighted(cfg):
+        inputs = inputs._replace(dense_compact=compact_dense_frames(
+            inputs.dense, capacity=cfg.dense_src_capacity, with_color=cfg.w_dense_color > 0.0))
     free = inputs.free_mask & inputs.frame_valid
     poses = inputs.poses
     batch = poses.shape[:-3]
@@ -135,7 +155,10 @@ def optimize_pose_graph(inputs: GraphInputs, cfg, p2p=None):
     for it in range(cfg.num_iter_outer):
         H, g, step_cost = build_normal_equations(inputs._replace(poses=poses), cfg, p2p)
         H, g = _apply_gauge(H, g, free)
-        delta = solve_normal_equations_cholesky(H, g, cfg.lm_lambda)
+        if cfg.solver_backend == "pcg":
+            delta = solve_normal_equations_pcg(H, g, num_iters=cfg.num_iter_inner, lm_lambda=cfg.lm_lambda)
+        else:
+            delta = solve_normal_equations_cholesky(H, g, cfg.lm_lambda)
         delta = delta * free.to(delta.dtype)[..., None]
         # trust-region style clamp: reject absurd steps
         step_norm = torch.linalg.norm(delta, dim=-1, keepdim=True)

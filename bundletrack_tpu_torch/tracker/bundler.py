@@ -193,8 +193,9 @@ def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
     `phases` = (neighbour [3, n_rep], pairs [P, 3, n_rep]) RANSAC phases;
     when None they are drawn from `state.rng`.  `lfnet_apply` is the LF-Net
     frontend (frontend/lfnet.make_lfnet_apply), needed when
-    cfg.frontend.kind is "lfnet"; its descriptors are cfg.frontend.desc_dim
-    wide.
+    cfg.frontend.kind is "lfnet"; it takes the streams' masked crops as
+    one [S, side, side, 1] stack, and its descriptors are
+    cfg.frontend.desc_dim wide.
     """
     batched = make_batched_track_frame(cfg, H, W, lfnet_apply)
 

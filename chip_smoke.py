@@ -79,8 +79,30 @@
    FAIL, translation error < 10 mm.  In phases 10-12 the matcher launches
    once per tracked frame, FAIL frames included (the BA pair section runs
    on every frame after the first).
-13. Prints one JSON line describing every kernel (the matcher's launches
-   summed over phases 3, 5, 7-12), the card's line, and as its last line
+13. LF-Net fleet phase: phase 9's 8 streams through the fleet step with
+   the LF-Net frontend (the shipped weights at 400x400 in bf16, one
+   batched forward on the 8 masked crops per fleet frame) for 12 frames
+   on the default TrackerConfig; every stream must meet the CLI phase's
+   pose bars (every pose finite, ADD-S AUC > 90, ADD AUC > 80), the
+   matcher must launch once per fleet frame, and stream 0 must match a
+   single-stream LF-Net Tracker given the same phases within
+   LFNET_FLEET_VS_SINGLE_*.  It logs how many keypoints of the batched
+   forward differ from per-stream forwards on the same crops, holds the
+   matcher to its plain version on the LF-Net fleet's [128, 512, 256]
+   table with 960 pairs (as in phase 9), and gives aggregate frames/s at
+   S = 1, 4, 8 (`fleet_bench.fleet_row` on `fleet_bench.lfnet_config`).
+14. PCG tracker phase: phase 3's frames with bundle.solver_backend="pcg",
+   held to phase 3's bars; frame latency, kernel launches, device ms and
+   device-to-host syncs per frame beside the Cholesky solve's.
+15. Photometric and fusion phase: tests/test_photometric.py's in-plane
+   shift solve on the card (the 4 mm shift below 2 mm);
+   dense_p2p_from_compact with the colour term on a 16-frame pool of the
+   rendered frames at the tracker's low-res size (120x160, C = 4096, 120
+   pairs), card against CPU within DENSE_CARD_RTOL, timed beside the
+   depth term alone and the compaction; fuse_depth_frames on 16 480x640
+   depth maps, card against CPU within FUSION_ATOL_M, timed.
+16. Prints one JSON line describing every kernel (the matcher's launches
+   summed over phases 3, 5, 7-14), the card's line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and the last line is not
@@ -142,6 +164,27 @@ FLEET_STREAMS, FLEET_FRAMES = 8, 12
 # order on the card (the tolerance of the port's trajectory against JAX's)
 FLEET_VS_SINGLE_ROT_DEG, FLEET_VS_SINGLE_TRANS_M = 0.01, 1e-4
 FLEET_RATE_FRAMES = 5  # timed fleet frames per S in the frames/s rows
+# stream 0 of the LF-Net fleet against a single-stream LF-Net Tracker with
+# the same phases: the batched bf16 forward may pick other cuDNN algorithms
+# than batch 1 does, so a few of the 512 keypoints per frame can differ and
+# the two runs track on slightly different matches; the bar is half the
+# tracker's pose bars (1 deg, 5 mm)
+LFNET_FLEET_VS_SINGLE_ROT_DEG, LFNET_FLEET_VS_SINGLE_TRANS_M = 0.5, 0.0025
+KPT_SAME_PX = 0.01  # two forwards' keypoints closer than this are the same keypoint
+
+PCG_AB_FRAMES = 12  # frames per fresh tracker in the PCG / Cholesky turns
+# tests/test_photometric.py's in-plane shift, and the bar it must fall below
+SHIFT_M, SHIFT_LEFT_M = 0.004, 0.002
+POOL_FRAMES = 16  # the default BA pool: the colour term's and fusion's frames
+# the colour term on the card against the CPU, relative to the largest
+# |entry| of H, g and the cost: the products and the atomic scatter-adds sum
+# in another order, and a pixel whose projection lies within an ulp of a
+# half pixel or a gate can change its association (one of ~4000 pixels of
+# a pair); correspondence counts per pair may differ by as many
+DENSE_CARD_RTOL, DENSE_COUNT_DIFF = 1e-3, 4
+# fusion on the card against the CPU: the same elementwise f32 arithmetic,
+# the sums of <= 16 depths per pixel in another order (atomics)
+FUSION_ATOL_M = 1e-5
 
 # Published peaks of one H100 SXM (dense): HBM bytes/s and bf16 tensor-core
 # FLOP/s; and the f32 instruction rate outside the tensor cores, 132 SMs x
@@ -299,7 +342,7 @@ def check_kernel(name, got, ref, table, pi, pj, gates) -> float:
             raise AssertionError("exact_ties: the kernel differs from the plain version")
         if not bool((bb[has_k] % 2 == 0).all()):
             raise AssertionError("exact_ties: a tie did not go to the first index")
-    if name in ("rendered", "half_invalid", "exact_ties", "lfnet", "fleet") and int(mm.sum()) < 1000:
+    if name in ("rendered", "half_invalid", "exact_ties", "lfnet", "fleet", "lfnet_fleet") and int(mm.sum()) < 1000:
         raise AssertionError(f"{name}: too few mutual matches")
     return err
 
@@ -374,7 +417,9 @@ def kernel_phase(seq, cfg, device, lf_cfg, lfnet) -> dict:
     }
 
 
-def tracker_phase(seq, cfg, card: str) -> int:
+def tracker_phase(seq, cfg, card: str, label: str = "tracker") -> tuple:
+    """Tracks the sequence from memory and holds every frame to the pose
+    bars; returns (matcher launches, median frame ms, poses)."""
     from bundletrack_tpu_torch.cardrun import WARMUP_FRAMES, H, W, steady_median, timed_frames
     from bundletrack_tpu_torch.eval.metrics import adds_auc, pose_errors
     from bundletrack_tpu_torch.kernels import matching as km
@@ -390,9 +435,9 @@ def tracker_phase(seq, cfg, card: str) -> int:
         frame_ms.append(ms)
     launches = km.launches
     tracked = len(seq.gray) - 1
-    log(f"tracker: statuses {statuses}")
+    log(f"{label}: statuses {statuses}")
     if launches != tracked:
-        raise AssertionError(f"matcher launches {launches} != tracked frames {tracked}")
+        raise AssertionError(f"{label}: matcher launches {launches} != tracked frames {tracked}")
     worst_rot = worst_trans = 0.0
     for f, pose in enumerate(poses):
         if pose.shape != (4, 4) or not np.all(np.isfinite(pose)):
@@ -402,16 +447,16 @@ def tracker_phase(seq, cfg, card: str) -> int:
     model_pts = (np.random.RandomState(0).rand(500, 3).astype(np.float32) - 0.5) * 0.2
     auc = adds_auc(poses, list(seq.ob_in_cam), model_pts)
     med = steady_median(frame_ms)
-    log(f"tracker: {len(poses)} frames at {H}x{W}, worst rotation {worst_rot:.4f} deg, "
+    log(f"{label}: {len(poses)} frames at {H}x{W}, solver {cfg.bundle.solver_backend}, worst rotation {worst_rot:.4f} deg, "
         f"worst translation {worst_trans * 1e3:.3f} mm, ADD-S AUC {auc:.2f}")
-    log(f"tracker: median frame {med:.2f} ms ({1e3 / med:.2f} frames/s) over frames "
+    log(f"{label}: median frame {med:.2f} ms ({1e3 / med:.2f} frames/s) over frames "
         f"{WARMUP_FRAMES}..{len(poses) - 1}, first frame {frame_ms[0]:.1f} ms, "
         f"matcher launches {launches} [{card}]")
     if any(s != 0 for s in statuses):
-        raise AssertionError(f"not every frame is OK: {statuses}")
+        raise AssertionError(f"{label}: not every frame is OK: {statuses}")
     if worst_rot >= 1.0 or worst_trans >= 0.005 or auc <= 95.0:
-        raise AssertionError("pose bars missed (rotation < 1 deg, translation < 5 mm, ADD-S AUC > 95)")
-    return launches
+        raise AssertionError(f"{label}: pose bars missed (rotation < 1 deg, translation < 5 mm, ADD-S AUC > 95)")
+    return launches, med, poses
 
 
 def lfnet_forward_phase(seq, lf_cfg, lfnet, card: str) -> float:
@@ -709,42 +754,53 @@ def nocs_phase(seq, card: str) -> int:
     return launches
 
 
-def fleet_phase(cfg, card: str) -> int:
-    """The fleet step on 8 differently seeded streams, its matcher on the
-    fleet's table, and the fleet's frames/s at S = 1, 4, 8."""
+def render_fleet_sequences():
+    """The fleet phases' 8 differently seeded 480x640 sequences, each long
+    enough for a K=16 BA table, rendered in threads."""
+    from bundletrack_tpu_torch.cardrun import H, W
+    from bundletrack_tpu_torch.data import render_synthetic_sequence
+
+    t0 = time.perf_counter()
+    n_render = max(K_BA, FLEET_FRAMES)  # the BA table of the kernel check takes K_BA frames
+    render = lambda s: render_synthetic_sequence(num_frames=n_render, H=H, W=W, seed=s, orbit_deg_per_frame=3.0)  # noqa: E731
+    with ThreadPoolExecutor(max_workers=FLEET_STREAMS) as pool:
+        seqs = list(pool.map(render, range(FLEET_STREAMS)))
+    log(f"fleet: rendered {FLEET_STREAMS} sequences of {n_render} frames at {H}x{W} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return seqs
+
+
+def fleet_phases(cfg, S: int, F: int):
+    """The RANSAC phases of every stream and frame, drawn as each stream's
+    generator would draw them (stream s seeded s), so a single-stream run
+    can be given the same; None for frame 0."""
     import torch
 
-    from bundletrack_tpu_torch import fleet_bench
-    from bundletrack_tpu_torch.cardrun import H, W, cuda_median_ms
-    from bundletrack_tpu_torch.data import render_synthetic_sequence
-    from bundletrack_tpu_torch.eval.metrics import adds_auc, pose_errors
-    from bundletrack_tpu_torch.kernels import matching as km
-    from bundletrack_tpu_torch.matcher_bench import ba_table
-    from bundletrack_tpu_torch.parallel import fleet_observation, init_fleet_state, make_fleet_step
     from bundletrack_tpu_torch.ransac.ransac import draw_phases
-    from bundletrack_tpu_torch.tracker.driver import Tracker
 
-    S, F = FLEET_STREAMS, FLEET_FRAMES
-    t0 = time.perf_counter()
-    n_render = max(K_BA, F)  # the BA table of the kernel check takes K_BA frames
-    render = lambda s: render_synthetic_sequence(num_frames=n_render, H=H, W=W, seed=s, orbit_deg_per_frame=3.0)  # noqa: E731
-    with ThreadPoolExecutor(max_workers=S) as pool:
-        seqs = list(pool.map(render, range(S)))
-    log(f"fleet: rendered {S} sequences of {n_render} frames at {H}x{W} in {time.perf_counter() - t0:.1f} s")
-
-    # the RANSAC phases of every stream and frame, drawn as each stream's
-    # generator would draw them, so the single-stream run gets the same
     rc, M, P = cfg.ransac, cfg.shapes.max_matches, P_PAIRS
     gens = [torch.Generator(device="cuda").manual_seed(s) for s in range(S)]
-    phases = [None] + [
+    return [None] + [
         tuple(torch.stack(p) for p in zip(*[(draw_phases((), rc.max_iter, M, g),
                                              draw_phases((P,), rc.max_iter, M, g)) for g in gens]))
         for _ in range(1, F)
     ]
-    init_pose = np.stack([np.linalg.inv(q.ob_in_cam[0]) for q in seqs]).astype(np.float32)
-    step = make_fleet_step(cfg, H, W)
+
+
+def run_fleet(cfg, seqs, F: int, phases, lfnet=None):
+    """F fleet frames of the streams `seqs` on the card; returns (per-frame
+    (poses [S,4,4], statuses [S]) as numpy, fleet frame ms, matcher
+    launches)."""
+    import torch
+
+    from bundletrack_tpu_torch.cardrun import H, W
+    from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.parallel import fleet_observation, init_fleet_state, make_fleet_step
+
+    S = len(seqs)
+    step = make_fleet_step(cfg, H, W, lfnet_apply=lfnet)
     state = init_fleet_state(cfg, H, W, S)  # the card, by default
-    ip = torch.as_tensor(init_pose, device="cuda")
+    ip = torch.as_tensor(np.stack([np.linalg.inv(q.ob_in_cam[0]) for q in seqs]).astype(np.float32), device="cuda")
     km.launches = 0  # count only this path's launches
     outs, frame_ms = [], []
     for f in range(F):
@@ -756,7 +812,68 @@ def fleet_phase(cfg, card: str) -> int:
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t1) * 1e3)
         outs.append((out.ob_in_cam.cpu().numpy(), out.status.cpu().numpy()))
-    launches = km.launches
+    return outs, frame_ms, km.launches
+
+
+def stream_vs_single(cfg, seq, F: int, phases, fleet_poses, lfnet=None):
+    """Stream 0's poses against a single-stream Tracker on its frames with
+    the same phases: (max rotation deg, max translation m)."""
+    from bundletrack_tpu_torch.cardrun import H, W
+    from bundletrack_tpu_torch.eval.metrics import pose_errors
+    from bundletrack_tpu_torch.tracker.driver import Tracker
+
+    single = Tracker(cfg, H, W, lfnet_apply=lfnet)
+    init_pose = np.linalg.inv(seq.ob_in_cam[0]).astype(np.float32)
+    worst = (0.0, 0.0)
+    for f in range(F):
+        ph = None if phases[f] is None else tuple(p[0] for p in phases[f])
+        out = single.process_frame(seq.gray[f], seq.depth[f], seq.mask[f], seq.K, init_pose, phases=ph)
+        rot, trans = pose_errors(out.ob_in_cam.cpu().numpy(), fleet_poses[f])
+        worst = (max(worst[0], rot), max(worst[1], trans))
+    return worst
+
+
+def fleet_table_check(name: str, seqs, cfg, card: str, lfnet=None) -> dict:
+    """The matcher on a fleet's own table, the streams' K=16 BA tables as
+    one [S*K, N, D] table with stream s's pairs at s*K + i, against its
+    plain version; timed with its bound."""
+    import torch
+
+    from bundletrack_tpu_torch.cardrun import cuda_median_ms
+    from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.matcher_bench import ba_table
+
+    tables = [ba_table(q, cfg, "cuda", lfnet) for q in seqs]
+    table = tuple(torch.cat([t[0][k] for t in tables]) for k in range(4))
+    pi, pj = (torch.cat([t[1][k] + s * K_BA for s, t in enumerate(tables)]) for k in range(2))
+    fc = cfg.feature_corres
+    gates = dict(max_dist=fc.max_dist_no_neighbor, max_normal_deg=fc.max_normal_no_neighbor)
+    got = km.fused_mutual_match_pairs(*table, pi, pj, **gates)
+    ref = km.fused_mutual_match_pairs_reference(*table, pi, pj, **gates)
+    torch.cuda.synchronize()
+    Kf, N, D = table[0].shape
+    diff_rows = int((got[2] != ref[2]).sum())
+    err = check_kernel(name, got, ref, table, pi, pj, gates)
+    ms = cuda_median_ms(lambda: km.fused_mutual_match_pairs(*table, pi, pj, **gates))
+    plain_ms = cuda_median_ms(lambda: km.fused_mutual_match_pairs_reference(*table, pi, pj, **gates), runs=5)
+    bound_ms, term = matcher_bound(Kf, N, D, len(pi))
+    log(f"kernel fused_mutual_match_pairs on the {name} table K={Kf} P={len(pi)} N={N} D={D}: {ms:.4f} ms  "
+        f"plain {plain_ms:.4f} ms  bound {bound_ms:.5f} ms ({term})  {100 * bound_ms / ms:.1f} % of bound, "
+        f"max |dist diff| {err:.3e}, mutual rows that differ {diff_rows}, valid keypoints "
+        f"{int(table[3].sum())} of {table[3].numel()} [{card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "diff_rows": diff_rows, "max_abs_err": err}
+
+
+def fleet_phase(seqs, cfg, card: str) -> int:
+    """The fleet step on 8 differently seeded streams, its matcher on the
+    fleet's table, and the fleet's frames/s at S = 1, 4, 8."""
+    from bundletrack_tpu_torch import fleet_bench
+    from bundletrack_tpu_torch.cardrun import H, W
+    from bundletrack_tpu_torch.eval.metrics import adds_auc, pose_errors
+
+    S, F = FLEET_STREAMS, FLEET_FRAMES
+    phases = fleet_phases(cfg, S, F)
+    outs, frame_ms, launches = run_fleet(cfg, seqs, F, phases)
     if launches != F - 1:
         raise AssertionError(f"fleet: matcher launches {launches} != fleet frames tracked {F - 1}")
     model_pts = (np.random.RandomState(0).rand(500, 3).astype(np.float32) - 0.5) * 0.2
@@ -774,14 +891,7 @@ def fleet_phase(cfg, card: str) -> int:
             raise AssertionError(f"fleet: stream {s}: pose bars missed (rotation < 1 deg, translation < 5 mm, "
                                  "ADD-S AUC > 95)")
 
-    single = Tracker(cfg, H, W)
-    worst = (0.0, 0.0)
-    for f in range(F):
-        q = seqs[0]
-        ph = None if phases[f] is None else tuple(p[0] for p in phases[f])
-        out = single.process_frame(q.gray[f], q.depth[f], q.mask[f], q.K, init_pose[0], phases=ph)
-        rot, trans = pose_errors(out.ob_in_cam.cpu().numpy(), outs[f][0][0])
-        worst = (max(worst[0], rot), max(worst[1], trans))
+    worst = stream_vs_single(cfg, seqs[0], F, phases, [o[0][0] for o in outs])
     log(f"fleet: stream 0 against a single-stream Tracker with the same phases: max {worst[0]:.3e} deg, "
         f"{worst[1]:.3e} m (tolerance {FLEET_VS_SINGLE_ROT_DEG} deg, {FLEET_VS_SINGLE_TRANS_M} m)")
     if worst[0] >= FLEET_VS_SINGLE_ROT_DEG or worst[1] >= FLEET_VS_SINGLE_TRANS_M:
@@ -791,30 +901,306 @@ def fleet_phase(cfg, card: str) -> int:
         f"({S * 1e3 / med:.2f} frames/s aggregate) over frames 3..{F - 1}, first {frame_ms[0]:.1f} ms, "
         f"matcher launches {launches} for {F - 1} tracked fleet frames [{card}]")
 
-    # the matcher on the fleet's own table: the 8 streams' BA tables as one
-    # [S*K, N, D] table, stream s's pairs at s*K + i
-    tables = [ba_table(q, cfg, "cuda") for q in seqs]
-    table = tuple(torch.cat([t[0][k] for t in tables]) for k in range(4))
-    pi, pj = (torch.cat([t[1][k] + s * K_BA for s, t in enumerate(tables)]) for k in range(2))
-    fc = cfg.feature_corres
-    gates = dict(max_dist=fc.max_dist_no_neighbor, max_normal_deg=fc.max_normal_no_neighbor)
-    got = km.fused_mutual_match_pairs(*table, pi, pj, **gates)
-    ref = km.fused_mutual_match_pairs_reference(*table, pi, pj, **gates)
-    torch.cuda.synchronize()
-    Kf, N, D = table[0].shape
-    diff_rows = int((got[2] != ref[2]).sum())
-    err = check_kernel("fleet", got, ref, table, pi, pj, gates)
-    ms = cuda_median_ms(lambda: km.fused_mutual_match_pairs(*table, pi, pj, **gates))
-    plain_ms = cuda_median_ms(lambda: km.fused_mutual_match_pairs_reference(*table, pi, pj, **gates), runs=5)
-    bound_ms, term = matcher_bound(Kf, N, D, len(pi))
-    log(f"kernel fused_mutual_match_pairs on the fleet table K={Kf} P={len(pi)} N={N} D={D}: {ms:.4f} ms  "
-        f"plain {plain_ms:.4f} ms  bound {bound_ms:.5f} ms ({term})  {100 * bound_ms / ms:.1f} % of bound, "
-        f"max |dist diff| {err:.3e}, mutual rows that differ {diff_rows} [{card}]")
-
+    fleet_table_check("fleet", seqs, cfg, card)
     seq = fleet_bench.render(H, W, fleet_bench.WARMUP + FLEET_RATE_FRAMES + fleet_bench.PROFILED + 1)
     for n in (1, 4, 8):
         fleet_bench.fleet_row(fleet_bench.bench_config(H, W), seq, n, FLEET_RATE_FRAMES, card)
     return launches
+
+
+def differing_keypoints(batched, single) -> int:
+    """Valid keypoints of one forward with no valid keypoint of the other
+    within KPT_SAME_PX."""
+    import torch
+
+    a = batched.kpts_uv[batched.valid]
+    b = single.kpts_uv[single.valid]
+    if len(a) == 0 or len(b) == 0:
+        return max(len(a), len(b))
+    return int((torch.cdist(a, b).min(dim=1).values > KPT_SAME_PX).sum()) + abs(len(a) - len(b))
+
+
+def lfnet_fleet_phase(seqs, lf_cfg, lfnet, card: str) -> tuple:
+    """The LF-Net fleet: 8 streams, one batched 400x400 bf16 forward and one
+    matcher launch per fleet frame; its matcher on the LF-Net fleet table;
+    the batched forward against per-stream forwards on the same crops;
+    frames/s at S = 1, 4, 8.  Returns (matcher launches, table stats)."""
+    import torch
+
+    from bundletrack_tpu_torch import fleet_bench
+    from bundletrack_tpu_torch.cardrun import H, W
+    from bundletrack_tpu_torch.eval.metrics import add_error, adi_error, vocap_auc
+    from bundletrack_tpu_torch.ops.masks import mask_roi
+    from bundletrack_tpu_torch.ops.resize import crop_resize_square
+
+    S, F = FLEET_STREAMS, FLEET_FRAMES
+    phases = fleet_phases(lf_cfg, S, F)
+    outs, frame_ms, launches = run_fleet(lf_cfg, seqs, F, phases, lfnet)
+    model_pts = (np.random.RandomState(0).rand(500, 3).astype(np.float32) - 0.5) * 0.2
+    missed = []
+    for s in range(S):
+        poses = [outs[f][0][s] for f in range(F)]
+        gts = seqs[s].ob_in_cam[:F]
+        statuses = [int(outs[f][1][s]) for f in range(F)]
+        add = vocap_auc([add_error(p, g, model_pts) for p, g in zip(poses, gts)])
+        adds = vocap_auc([adi_error(p, g, model_pts) for p, g in zip(poses, gts)])
+        log(f"lfnet fleet: stream {s}: statuses {statuses}, ADD AUC {add:.2f}, ADD-S AUC {adds:.2f}")
+        if not all(np.all(np.isfinite(p)) for p in poses) or adds <= CLI_ADDS_AUC_MIN or add <= CLI_ADD_AUC_MIN:
+            missed.append(s)
+    worst = stream_vs_single(lf_cfg, seqs[0], F, phases, [o[0][0] for o in outs], lfnet)
+    med = float(np.median(frame_ms[3:]))
+    log(f"lfnet fleet: stream 0 against a single-stream LF-Net Tracker with the same phases: max "
+        f"{worst[0]:.3e} deg, {worst[1]:.3e} m (tolerance {LFNET_FLEET_VS_SINGLE_ROT_DEG} deg, "
+        f"{LFNET_FLEET_VS_SINGLE_TRANS_M} m)")
+    fc = lf_cfg.frontend
+    log(f"lfnet fleet: {S} streams at {H}x{W}, LF-Net {fc.input_size}x{fc.input_size} "
+        f"{'bf16' if fc.bf16 else 'f32'}: median fleet frame {med:.2f} ms "
+        f"({S * 1e3 / med:.2f} frames/s aggregate) over frames 3..{F - 1}, first {frame_ms[0]:.1f} ms, "
+        f"matcher launches {launches} for {F - 1} tracked fleet frames [{card}]")
+
+    # the batched forward against one forward per crop, on frame 1's crops
+    gray = torch.as_tensor(np.stack([q.gray[1] for q in seqs]), device="cuda")
+    mask = torch.as_tensor(np.stack([q.mask[1] for q in seqs]), device="cuda")
+    crops = crop_resize_square(torch.where(mask, gray, torch.zeros_like(gray)), mask_roi(mask)[:4],
+                               lf_cfg.frontend.input_size)[0]
+    batched = lfnet(crops[..., None])
+    diffs = [differing_keypoints(type(batched)(*(t[s] for t in batched)), lfnet(crops[s, ..., None]))
+             for s in range(S)]
+    log(f"lfnet fleet: keypoints of the batched forward with no per-stream keypoint within {KPT_SAME_PX} px, "
+        f"per stream of {lf_cfg.frontend.top_k}: {diffs}")
+
+    stats = fleet_table_check("lfnet_fleet", seqs, lf_cfg, card, lfnet)
+    seq = fleet_bench.render(H, W, fleet_bench.WARMUP + FLEET_RATE_FRAMES + fleet_bench.PROFILED + 1)
+    for n in (1, 4, 8):
+        fleet_bench.fleet_row(fleet_bench.lfnet_config(H, W), seq, n, FLEET_RATE_FRAMES, card, lfnet)
+    if launches != F - 1:
+        raise AssertionError(f"lfnet fleet: matcher launches {launches} != fleet frames tracked {F - 1}")
+    if missed:
+        raise AssertionError(f"lfnet fleet: streams {missed} missed the pose bars (finite, ADD-S AUC > "
+                             f"{CLI_ADDS_AUC_MIN}, ADD AUC > {CLI_ADD_AUC_MIN})")
+    if worst[0] >= LFNET_FLEET_VS_SINGLE_ROT_DEG or worst[1] >= LFNET_FLEET_VS_SINGLE_TRANS_M:
+        raise AssertionError("lfnet fleet: stream 0 differs from the single-stream LF-Net tracker")
+    return launches, stats
+
+
+def frame_costs(cfg, seq, frames: int) -> dict:
+    """A fresh tracker on `frames` frames: the median frame ms after the
+    warm-up frames (host clock, device synchronised around each frame);
+    then one more frame's device-to-host syncs (torch's sync debug mode)
+    and one more's kernel launches and device ms (torch.profiler)."""
+    import warnings
+
+    import torch
+
+    from bundletrack_tpu_torch.cardrun import H, W, steady_median, timed_frames
+    from bundletrack_tpu_torch.tracker.driver import Tracker
+
+    tracker = Tracker(cfg, H, W)
+    init_pose = np.linalg.inv(seq.ob_in_cam[0])
+    frame_ms = [ms for _, _, ms in timed_frames(tracker, seq, range(frames), init_pose)]
+
+    def track(f):
+        return tracker.process_frame(seq.gray[f], seq.depth[f], seq.mask[f], seq.K, init_pose)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            track(frames)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchronizing" in str(w.message) for w in caught)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        track(frames + 1)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"ms": steady_median(frame_ms), "launches": len(kernels),
+            "device_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3, "syncs": syncs}
+
+
+def solve_times(K: int = K_BA) -> dict:
+    """One normal-equation solve alone on a random SPD [K, K, 6, 6] system
+    (the default BA size), each backend: (CUDA-event ms, host ms per call
+    with the device synchronised at both ends, median of 25); and the
+    block-Jacobi inverse alone."""
+    import statistics
+
+    import torch
+
+    from bundletrack_tpu_torch.cardrun import cuda_median_ms
+    from bundletrack_tpu_torch.solver.gauss_newton import solve_normal_equations_cholesky
+    from bundletrack_tpu_torch.solver.pcg import solve_normal_equations_pcg
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    A = torch.randn(K * 6, K * 6, device="cuda", generator=g)
+    H = (A @ A.T + 10.0 * torch.eye(K * 6, device="cuda")).reshape(K, 6, K, 6).transpose(1, 2).contiguous()
+    gv = torch.randn(K, 6, device="cuda", generator=g)
+    diag = torch.diagonal(H, dim1=0, dim2=1).movedim(-1, 0).contiguous()
+    fns = {
+        "cholesky": lambda: solve_normal_equations_cholesky(H, gv, 1e-6),
+        "pcg": lambda: solve_normal_equations_pcg(H, gv, num_iters=5, lm_lambda=1e-6),
+        "inv_ex": lambda: torch.linalg.inv_ex(diag),
+    }
+    out = {}
+    for name, fn in fns.items():
+        host = []
+        for _ in range(28):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        out[name] = (cuda_median_ms(fn), statistics.median(host[3:]))
+    return out
+
+
+def pcg_tracker_phase(seq, cfg, card: str, cholesky_poses) -> int:
+    """The tracker phase's frames with bundle.solver_backend="pcg" (5 inner
+    iterations), held to the same bars; the poses against the Cholesky
+    run's; frame latency, launches and syncs per frame of both backends,
+    measured in turns (Cholesky, PCG, Cholesky, PCG) on fresh trackers;
+    the solves alone."""
+    import dataclasses
+
+    from bundletrack_tpu_torch.eval.metrics import pose_errors
+
+    pcg = cfg.replace(bundle=dataclasses.replace(cfg.bundle, solver_backend="pcg"))
+    launches, _, poses = tracker_phase(seq, pcg, card, label="pcg tracker")
+    errs = [pose_errors(p, q) for p, q in zip(poses, cholesky_poses)]
+    log(f"pcg tracker: against the Cholesky tracker phase's poses: max {max(e[0] for e in errs):.3e} deg, "
+        f"{max(e[1] for e in errs):.3e} m")
+    for turn in range(2):
+        costs = {name: frame_costs(c, seq, PCG_AB_FRAMES) for name, c in (("cholesky", cfg), ("pcg", pcg))}
+        log(f"pcg tracker: turn {turn + 1}, per tracked frame (fresh trackers, median of frames "
+            f"3..{PCG_AB_FRAMES - 1}): " + "; ".join(
+                f"{name} {c['ms']:.2f} ms, {c['launches']} launches, {c['device_ms']:.3f} device ms, "
+                f"{c['syncs']} syncs" for name, c in costs.items()) + f" [{card}]")
+    times = solve_times()
+    log(f"pcg tracker: one solve alone at K={K_BA} (CUDA events / host clock, ms, median of 25): " + ", ".join(
+        f"{name} {ev:.4f} / {host:.4f}" for name, (ev, host) in times.items()) + f" [{card}]")
+    return launches
+
+
+def dense_pool(seq, frames: int, ds: int, device: str):
+    """The first `frames` frames of `seq` as the solver's low-res dense
+    inputs: DenseFrames (cloud, normals, valid inside the mask, intensity
+    and its gradients) at 1/ds resolution, the low-res intrinsics, the
+    true cam->model poses; on `device`."""
+    import torch
+
+    from bundletrack_tpu_torch.config import TrackerConfig
+    from bundletrack_tpu_torch.geometry.camera import scale_intrinsics
+    from bundletrack_tpu_torch.ops.depth import process_depth
+    from bundletrack_tpu_torch.ops.intensity import intensity_gradients
+    from bundletrack_tpu_torch.ops.masks import preprocess_mask
+    from bundletrack_tpu_torch.ops.pointcloud import depth_to_cloud_and_normals
+    from bundletrack_tpu_torch.solver.dense_p2p import DenseFrames
+
+    cfg = TrackerConfig()
+    up = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)  # noqa: E731
+    depth = process_depth(up(seq.depth[:frames]), cfg.depth_processing)
+    K = up(np.broadcast_to(seq.K.astype(np.float32), (frames, 3, 3)))
+    pts, nrm, val = depth_to_cloud_and_normals(depth, K)
+    val = (val & preprocess_mask(up(seq.mask[:frames]), cfg.segmentation))[..., ::ds, ::ds]
+    inten = up(seq.gray[:frames].astype(np.float32))[..., ::ds, ::ds].contiguous()
+    gx, gy = intensity_gradients(inten, val)
+    frames_ = DenseFrames(points=pts[..., ::ds, ::ds, :].contiguous(), normals=nrm[..., ::ds, ::ds, :].contiguous(),
+                          valid=val.contiguous(), intensity=inten, grad_x=gx, grad_y=gy)
+    poses = up(np.linalg.inv(seq.ob_in_cam[:frames]).astype(np.float32))
+    return frames_, scale_intrinsics(up(seq.K.astype(np.float32)), 1.0 / ds), poses
+
+
+def photometric_fusion_phase(seq, card: str) -> None:
+    """The photometric term and depth fusion on the card: the in-plane
+    shift solve of tests/test_photometric.py; dense_p2p_from_compact with
+    the colour term on a 16-frame pool at the tracker's low-res size, card
+    against CPU, timed; fuse_depth_frames on 16 480x640 depth maps, card
+    against CPU, timed."""
+    import torch
+
+    from bundletrack_tpu_torch.cardrun import cuda_median_ms
+    from bundletrack_tpu_torch.config import BundleConfig, TrackerConfig
+    from bundletrack_tpu_torch.geometry.camera import unproject
+    from bundletrack_tpu_torch.ops.fusion import fuse_depth_frames
+    from bundletrack_tpu_torch.ops.intensity import intensity_gradients
+    from bundletrack_tpu_torch.solver.dense_p2p import DenseFrames, compact_dense_frames, dense_p2p_from_compact
+    from bundletrack_tpu_torch.solver.gauss_newton import GraphInputs, optimize_pose_graph
+    from bundletrack_tpu_torch.solver.residuals import SparseCorres
+
+    # ---- the in-plane shift: invisible to point-to-plane on a plane
+    Hp, Wp = 48, 64
+    K = torch.tensor([[60.0, 0, Wp / 2 - 0.5], [0, 60.0, Hp / 2 - 0.5], [0, 0, 1]], device="cuda")
+    pts = unproject(torch.ones(Hp, Wp, device="cuda"), K)
+    normals = torch.zeros(Hp, Wp, 3, device="cuda")
+    normals[..., 2] = -1.0
+    valid = torch.ones(Hp, Wp, dtype=torch.bool, device="cuda")
+    inten = 0.5 + 0.2 * torch.sin(20.0 * pts[..., 0]) + 0.2 * torch.cos(17.0 * pts[..., 1])
+    gx, gy = intensity_gradients(inten, valid)
+    two = lambda a: torch.stack([a, a])  # noqa: E731
+    poses = torch.eye(4, device="cuda").repeat(2, 1, 1)
+    poses[1, 0, 3] = SHIFT_M
+    corres = SparseCorres(torch.tensor([0], device="cuda"), torch.tensor([1], device="cuda"),
+                          torch.zeros(1, 4, 3, device="cuda"), torch.zeros(1, 4, 3, device="cuda"),
+                          torch.zeros(1, 4, dtype=torch.bool, device="cuda"))
+    inputs = GraphInputs(poses, torch.ones(2, dtype=torch.bool, device="cuda"),
+                         torch.tensor([False, True], device="cuda"), corres, K_lowres=K,
+                         dense=DenseFrames(two(pts), two(normals), two(valid), two(inten), two(gx), two(gy)))
+    out, _ = optimize_pose_graph(inputs, BundleConfig(w_sparse=0.0, w_dense_depth=0.0, w_dense_color=1.0,
+                                                      num_iter_outer=6, lm_lambda=1e-4))
+    left = abs(float(out[1, 0, 3]))
+    log(f"photometric: in-plane shift {SHIFT_M * 1e3:.1f} mm -> {left * 1e3:.3e} mm after 6 GN iterations "
+        f"(bar < {SHIFT_LEFT_M * 1e3:.1f} mm) [{card}]")
+
+    # ---- the colour term on a 16-frame pool, card against CPU
+    bundle = TrackerConfig().bundle
+    ds, C = bundle.image_downscale, bundle.dense_src_capacity  # the tracker's low-res size and capacity
+    frames, K_low, poses = dense_pool(seq, POOL_FRAMES, ds, "cuda")
+    pi, pj = (torch.as_tensor(a, device="cuda") for a in np.triu_indices(POOL_FRAMES, k=1))
+    fv = torch.ones(POOL_FRAMES, dtype=torch.bool, device="cuda")
+    results, timing = {}, {}
+    for device in ("cuda", "cpu"):
+        mv = lambda t: t.to(device)  # noqa: E731
+        f_d = DenseFrames(*(mv(t) for t in frames))
+        cd = compact_dense_frames(f_d, capacity=C, with_color=True)
+        args = (mv(poses), cd, mv(fv), mv(pi), mv(pj), mv(K_low))
+        results[device] = [t.cpu() for t in dense_p2p_from_compact(*args, weight=1.0, weight_color=1.0)]
+        C_used = cd.src.shape[-1]
+        if device == "cuda":
+            timing["compact"] = cuda_median_ms(lambda: compact_dense_frames(f_d, capacity=C, with_color=True))
+            timing["depth"] = cuda_median_ms(lambda: dense_p2p_from_compact(*args, weight=1.0))
+            timing["depth+colour"] = cuda_median_ms(
+                lambda: dense_p2p_from_compact(*args, weight=1.0, weight_color=1.0))
+    rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+           for a, b in zip(results["cuda"][:3], results["cpu"][:3])]
+    count_diff = int((results["cuda"][3] - results["cpu"][3]).abs().max())
+    log(f"photometric: dense_p2p_from_compact, w_dense_color 1, {POOL_FRAMES}-frame pool at "
+        f"{frames.valid.shape[-2]}x{frames.valid.shape[-1]}, C={C_used}, {len(pi)} pairs, "
+        f"{int(results['cpu'][3].sum())} correspondences: card vs CPU max |diff| / max |CPU| H {rel[0]:.3e}, "
+        f"g {rel[1]:.3e}, cost {rel[2]:.3e} (tolerance {DENSE_CARD_RTOL}), counts differ by at most {count_diff} "
+        f"(tolerance {DENSE_COUNT_DIFF})")
+    log("photometric: card ms (CUDA events, median of 25): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in timing.items()) + f" [{card}]")
+
+    # ---- depth fusion, card against CPU
+    depths = torch.as_tensor(seq.depth[:POOL_FRAMES].astype(np.float32), device="cuda")
+    Kf = torch.as_tensor(seq.K.astype(np.float32), device="cuda")
+    fused = fuse_depth_frames(depths, poses, Kf, target_idx=POOL_FRAMES // 2)
+    fused_cpu = fuse_depth_frames(depths.cpu(), poses.cpu(), Kf.cpu(), target_idx=POOL_FRAMES // 2)
+    fuse_err = float((fused.cpu() - fused_cpu).abs().max())
+    changed = float((fused != depths[POOL_FRAMES // 2]).float().mean())
+    fuse_ms = cuda_median_ms(lambda: fuse_depth_frames(depths, poses, Kf, target_idx=POOL_FRAMES // 2))
+    log(f"fusion: {POOL_FRAMES} depth maps at {depths.shape[1]}x{depths.shape[2]} into frame "
+        f"{POOL_FRAMES // 2}: card vs CPU max |diff| {fuse_err:.3e} m (tolerance {FUSION_ATOL_M}), "
+        f"{changed * 100:.2f} % of pixels fused; {fuse_ms:.4f} ms (CUDA events, median of 25) [{card}]")
+
+    if left >= SHIFT_LEFT_M:
+        raise AssertionError("photometric: the in-plane shift was not recovered")
+    if max(rel) > DENSE_CARD_RTOL or count_diff > DENSE_COUNT_DIFF:
+        raise AssertionError("photometric: the card's colour term differs from the CPU's")
+    if not fuse_err <= FUSION_ATOL_M:
+        raise AssertionError("fusion: the card's fused depth differs from the CPU's")
 
 
 def hard_pass_specs(**kw) -> dict:
@@ -992,7 +1378,7 @@ def main() -> int:
     kernel = kernel_phase(seq, cfg, device, lf_cfg, lfnet)
     phase_s = {}
     t0 = time.perf_counter()
-    classical_launches = tracker_phase(seq, cfg, card)
+    classical_launches, _, classical_poses = tracker_phase(seq, cfg, card)
     lfnet_forward_phase(seq, lf_cfg, lfnet, card)
     cli_launches = cli_phase(seq, card)
     phase_s["tracker, lfnet, cli"] = time.perf_counter() - t0
@@ -1006,7 +1392,8 @@ def main() -> int:
     nocs_launches = nocs_phase(seq, card)
     phase_s["nocs chain"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    fleet_launches = fleet_phase(cfg, card)
+    fleet_seqs = render_fleet_sequences()
+    fleet_launches = fleet_phase(fleet_seqs, cfg, card)
     phase_s["fleet"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     passes, fail_seq = render_new_phase_inputs()
@@ -1020,10 +1407,20 @@ def main() -> int:
     t0 = time.perf_counter()
     verify_launches = verify_reject_phase(seq, card)
     phase_s["verify reject"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lfnet_fleet_launches, _ = lfnet_fleet_phase(fleet_seqs, lf_cfg, lfnet, card)
+    phase_s["lfnet fleet"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pcg_launches = pcg_tracker_phase(seq, cfg, card, classical_poses)
+    phase_s["pcg tracker"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    photometric_fusion_phase(seq, card)
+    phase_s["photometric and fusion"] = time.perf_counter() - t0
     launches = {
         "classical tracker phase": classical_launches, "lfnet CLI phase (filter 0 and filtered PNGs)": cli_launches,
         "VOS chain": vos_chain_launches, "NOCS chain": nocs_launches, "fleet": fleet_launches,
         "hard world": hard_launches, "fail path": fail_launches, "verify reject": verify_launches,
+        "lfnet fleet": lfnet_fleet_launches, "pcg tracker": pcg_launches,
     }
     kernel["launches"] = sum(launches.values())
     log("matcher launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()))

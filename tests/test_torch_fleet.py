@@ -227,11 +227,13 @@ def test_a_failing_stream_leaves_the_others_alone(sequences, jax_fleet, port_fle
         np.testing.assert_array_equal(outs[f].ob_in_cam[0].numpy(), port_fleet[f].ob_in_cam[0].numpy())
 
 
-def test_mesh_and_lfnet_raise_and_the_card_is_the_default():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+def test_mesh_raises_lfnet_builds_and_the_card_is_the_default():
+    """Only a mesh still raises; an LF-Net frontend builds a fleet step
+    (tests/test_torch_fleet_lfnet.py runs it); the card is the default."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
         make_fleet_step(port_cfg(), H, W, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        make_fleet_step(port_cfg(), H, W, lfnet_apply=lambda crop: None)
+    lf_cfg = port_cfg().replace(frontend=dataclasses.replace(port_cfg().frontend, kind="lfnet"))
+    assert callable(make_fleet_step(lf_cfg, H, W, lfnet_apply=lambda crops: None))
     if torch.cuda.is_available():
         assert init_fleet_state(port_cfg(), H, W, 2).kf_pose.device.type == "cuda"
     else:

@@ -240,3 +240,65 @@ def test_tracker_on_the_card_matches_the_cpu():
     # f32 on both devices; sums run in other orders (scatter-adds on CUDA
     # vary from run to run), so 1e-4 m / 1e-4 on rotation entries
     np.testing.assert_allclose(poses["cuda"], poses["cpu"], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_lfnet_fleet_step_on_the_card_matches_the_cpu():
+    """Three streams through the LF-Net fleet step (one batched forward per
+    fleet frame, shipped weights at input_size 96, f32) on both devices,
+    with the same RANSAC phases."""
+    from bundletrack_tpu_torch.frontend import lfnet
+    from bundletrack_tpu_torch.parallel import fleet_observation, init_fleet_state, make_fleet_step
+
+    _need_card()
+    S, H, W, F = 3, 120, 160, 4
+    cfg = TrackerConfig(
+        bundle=BundleConfig(max_ba_frames=4), keyframe=KeyframeConfig(pool_size=8, min_rot=5.0),
+        frontend=FrontendConfig(kind="lfnet", input_size=96, top_k=128, bf16=False),
+        ransac=RansacConfig(max_iter=256), shapes=ShapeConfig(max_matches=128, image_h=H, image_w=W),
+    )
+    _, params = lfnet.load_params_npz("checkpoints/lfnet_params.npz", cfg.frontend)
+    seqs = [render_synthetic_sequence(num_frames=F, H=H, W=W, seed=s, orbit_deg_per_frame=4.0) for s in range(S)]
+    rng = np.random.RandomState(0)
+    phases = [tuple(torch.from_numpy(a) for a in (rng.randint(0, 128, (S, 3, 2)), rng.randint(0, 128, (S, 6, 3, 2))))
+              for _ in range(F)]
+    init_pose = np.stack([np.linalg.inv(q.ob_in_cam[0]) for q in seqs]).astype(np.float32)
+    poses = {}
+    for device in ("cuda", "cpu"):
+        step = make_fleet_step(cfg, H, W, lfnet_apply=lfnet.make_lfnet_apply(cfg.frontend, params).to(device))
+        state = init_fleet_state(cfg, H, W, S, device=device)
+        ip = torch.as_tensor(init_pose, device=device)
+        before = km.launches
+        for f in range(F):
+            obs = fleet_observation(*(np.stack([getattr(q, k)[f] for q in seqs]) for k in ("gray", "depth", "mask")),
+                                    np.stack([q.K for q in seqs]), device)
+            state, out = step(state, obs, ip, tuple(p.to(device) for p in phases[f]))
+            assert not bool(out.status.any()), (device, f, out.status)
+        if device == "cuda":
+            assert km.launches - before == F - 1  # one matcher launch per tracked fleet frame
+        poses[device] = out.ob_in_cam.cpu().numpy()
+    # f32 on both devices; cuDNN and the scatter-adds sum in other orders
+    np.testing.assert_allclose(poses["cuda"], poses["cpu"], atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [None, 8], ids=["one_graph", "eight_graphs"])
+def test_pcg_solve_on_the_card_matches_the_cpu(batch):
+    """Five block-Jacobi PCG steps on random SPD systems of 16 frames (the
+    default BA size), on both devices."""
+    from bundletrack_tpu_torch.solver.pcg import solve_normal_equations_pcg
+
+    _need_card()
+    rng = np.random.RandomState(1)
+    n, K = batch or 1, 16
+    A = rng.randn(n, K * 6, K * 6).astype(np.float32)
+    Hd = A @ A.transpose(0, 2, 1) + 10.0 * np.eye(K * 6, dtype=np.float32)
+    H = torch.from_numpy(Hd.reshape(n, K, 6, K, 6).transpose(0, 1, 3, 2, 4).copy())
+    g = torch.from_numpy(rng.randn(n, K, 6).astype(np.float32))
+    if batch is None:
+        H, g = H[0], g[0]
+    cpu = solve_normal_equations_pcg(H, g, num_iters=5, lm_lambda=1e-4)
+    card = solve_normal_equations_pcg(H.cuda(), g.cuda(), num_iters=5, lm_lambda=1e-4).cpu()
+    # f32 with TF32 off on both devices: the einsum's and the dot products'
+    # sums run in another order
+    np.testing.assert_allclose(card.numpy(), cpu.numpy(), atol=1e-5 * float(cpu.abs().max()))

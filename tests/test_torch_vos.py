@@ -400,7 +400,7 @@ def test_run_vos_refuses_an_orbax_directory(tmp_path):
     img_dir, init = _write_frames(tmp_path, seq)
     ckpt_dir = tmp_path / "params"
     ckpt_dir.mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
         run_vos.main(["--img_dir", img_dir, "--init_mask_file", init, "--mask_save_dir", str(tmp_path / "m"),
                       "--checkpoint", str(ckpt_dir), "--device", "cpu"])
 
