@@ -5,13 +5,14 @@ transductive-vos.pytorch/run_video.py:56-73 args --img_dir --init_mask_file
 --mask_save_dir, 77-160 run_one_video — per-frame ResNet features +
 attention over sampled history, masks written as PNGs that the tracker
 consumes through its mask_dir).  Reads the weights the repo ships
-(checkpoints/vos_params.npz) unless --checkpoint names another npz.  Runs on
-the card unless --device says otherwise.
+(checkpoints/vos_params.npz) unless --checkpoint names another npz or the
+`params` directory of a train_vos checkpoint.  Runs on the card unless
+--device says otherwise.
 
 Usage:
     python -m bundletrack_tpu_torch.apps.run_vos --img_dir data/rgb \
         --init_mask_file data/masks/00000.png --mask_save_dir out/masks \
-        [--checkpoint weights.npz] [--device cpu]
+        [--checkpoint weights.npz | ckpt/vos/params] [--device cpu]
 """
 
 from __future__ import annotations
@@ -43,10 +44,31 @@ def _to_rgb01(img) -> np.ndarray:
     return (arr[..., :3] / 255.0).astype(np.float32)
 
 
+def load_trained(ckpt_dir: str):
+    """The VOSNet in a `params` directory that the port's train_vos wrote
+    (utils/checkpoint.py), of the width and out_dim it holds."""
+    from bundletrack_tpu_torch.models.vos import VOSNet
+    from bundletrack_tpu_torch.utils.checkpoint import STATE_FILE, restore_tracker_state
+
+    path = os.path.join(ckpt_dir, STATE_FILE)
+    if not os.path.exists(path):
+        raise ValueError(
+            f"--checkpoint {ckpt_dir}: no {STATE_FILE}, so not a directory the port's train_vos wrote; "
+            "an orbax checkpoint (the JAX package's) is unreadable here: export it with "
+            "bundletrack_tpu.utils.params_io.save_params_npz and pass the npz"
+        )
+    with np.load(path) as data:
+        width, out_dim = int(data["Conv_0.weight"].shape[0]), int(data["Conv_1.weight"].shape[0])
+    model = VOSNet(out_dim=out_dim, width=width)
+    model.load_state_dict(restore_tracker_state(ckpt_dir, model.state_dict()))
+    return model
+
+
 def load_model(checkpoint: str):
     """The VOSNet for --checkpoint: an npz of the JAX package's parameters
-    (architecture read from the file); "" means the shipped weights, or
-    seeded random ones when they are absent."""
+    (architecture read from the file), or the `params` directory of a
+    train_vos checkpoint; "" means the shipped weights, or seeded random
+    ones when they are absent."""
     from bundletrack_tpu_torch.models.vos import init_vos, load_vos_npz
 
     ckpt = checkpoint or (VOS_CKPT if os.path.exists(VOS_CKPT) else "")
@@ -55,10 +77,9 @@ def load_model(checkpoint: str):
         print(f"[run_vos] weights: {ckpt} (width={model.width})", file=sys.stderr)
         return model
     if ckpt:
-        raise NotImplementedError(
-            f"--checkpoint {ckpt}: an orbax checkpoint directory; the port reads npz "
-            "weights only (orbax checkpoints come with training, ROADMAP Queue 1, item 7)"
-        )
+        model = load_trained(ckpt)
+        print(f"[run_vos] weights: train_vos checkpoint {ckpt} (width={model.width})", file=sys.stderr)
+        return model
     model, _ = init_vos(seed=0)
     print("[run_vos] WARNING: no --checkpoint given; using untrained weights "
           "(train with apps/train_vos.py)", file=sys.stderr)
@@ -70,7 +91,8 @@ def main(argv=None):
     parser.add_argument("--img_dir", required=True)
     parser.add_argument("--init_mask_file", required=True)
     parser.add_argument("--mask_save_dir", required=True)
-    parser.add_argument("--checkpoint", default="", help="VOSNet weights (npz); the shipped ones when not given")
+    parser.add_argument("--checkpoint", default="",
+                        help="VOSNet weights: an npz, or train_vos's <ckpt-dir>/params; the shipped ones when not given")
     parser.add_argument("--max-frames", type=int, default=0)
     parser.add_argument("--history-cap", type=int, default=0,
                         help="feature-ring capacity; 0 = SegmentationConfig default")

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from bundletrack_tpu_torch.ops.numerics import flush_denormals
+from bundletrack_tpu_torch.ops.numerics import clip, flush_denormals
 from bundletrack_tpu_torch.ops.topk import topk_stable
 
 
@@ -147,7 +147,8 @@ def transformer_crop(
     Bilinear by hand as in the JAX code: the top-left tap is clipped to
     [0, W-2] x [0, H-2] and the fractions to [0, 1], so a sample outside the
     image takes the nearest border pair of taps (F.grid_sample treats the
-    border differently)."""
+    border differently).  The fractions' clip splits the gradient of a
+    sample on an integer pixel as jnp.clip does (ops/numerics.clip)."""
     B, C, H, W = images.shape
     N = kpts_xy.shape[0]
     lin = torch.linspace(-1.0, 1.0, out_size, device=images.device)
@@ -167,8 +168,8 @@ def transformer_crop(
 
     x0 = torch.clamp(torch.floor(x).to(torch.int64), 0, W - 2)
     y0 = torch.clamp(torch.floor(y).to(torch.int64), 0, H - 2)
-    dx = torch.clamp(x - x0, 0.0, 1.0)[:, None]  # [N, 1, P*P]
-    dy = torch.clamp(y - y0, 0.0, 1.0)[:, None]
+    dx = clip(x - x0, 0.0, 1.0)[:, None]  # [N, 1, P*P]; jnp.clip's gradient at 0 and 1
+    dy = clip(y - y0, 0.0, 1.0)[:, None]
     flat = images.permute(1, 0, 2, 3).reshape(C, B * H * W)
     lin_idx = (batch_inds.to(torch.int64)[:, None] * H + y0) * W + x0  # [N, P*P]
 

@@ -39,6 +39,7 @@ from bundletrack_tpu_torch.frontend.detector_ops import (
     transformer_crop,
 )
 from bundletrack_tpu_torch.frontend.interface import FrontendOutput
+from bundletrack_tpu_torch.ops.numerics import clip
 from bundletrack_tpu_torch.ops.resize import resize_bilinear
 from bundletrack_tpu_torch.utils import params_io
 from bundletrack_tpu_torch.utils.flax_layers import (
@@ -46,6 +47,7 @@ from bundletrack_tpu_torch.utils.flax_layers import (
     Dense,
     GroupNorm,
     channel_shape,
+    flax_from_state_dict,
     flax_param_shapes,
     state_dict_from_flax,
 )
@@ -53,7 +55,9 @@ from bundletrack_tpu_torch.utils.flax_layers import (
 
 class FrozenBN(nn.Module):
     """Inference-mode batch norm with ported running statistics (reference
-    common/tf_layer_utils.py:130, epsilon 1e-3), in f32."""
+    common/tf_layer_utils.py:130, epsilon 1e-3), in f32.  The statistics
+    are parameters, as in the Flax module, so a training step moves them
+    too: kept for parity with the JAX trainer."""
 
     def __init__(self, c: int, eps: float = 1e-3):
         super().__init__()
@@ -133,7 +137,7 @@ class MSODetector(nn.Module):
             rs = resize_bilinear(feat_rs, (fh, fw))
             score_maps.append(getattr(self, f"score_conv_{i}")(rs).to(torch.float32))
         ori = self.ori_conv(feat_maps)
-        ori = ori / torch.clamp(torch.linalg.vector_norm(ori, dim=1, keepdim=True), min=1e-6)
+        ori = ori / clip(torch.linalg.vector_norm(ori, dim=1, keepdim=True), 1e-6)
         return score_maps, ori, feat_maps
 
 
@@ -162,7 +166,7 @@ class SimpleDesc(nn.Module):
         x = x.reshape(x.shape[0], -1)  # (c, h, w) order: fc1's rows were reordered to it
         x = F.relu(self.fc1_norm(self.fc1(x)))
         x = self.fc2(x).to(torch.float32)
-        return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-6)
+        return x / clip(torch.linalg.vector_norm(x, dim=-1, keepdim=True), 1e-6)
 
 
 class LFNet(nn.Module):
@@ -183,14 +187,24 @@ class LFNet(nn.Module):
             ksize=c.desc_conv_ksize, norm=c.norm, patch_size=c.patch_size, dtype=dtype,
         )
 
-    def forward(self, photos):
+    def describe_patches(self, patches):
+        """The descriptor tower alone on patches [N, 1, P, P] -> [N, D] (the
+        training step describes warped patches with it)."""
+        return self.descriptor(patches)
+
+    def forward(self, photos, return_endpoints: bool = False):
         """photos [B, 1, H, W] gray in [0, 1] -> FrontendOutput with
-        kpts_uv [B, K, 2], scores [B, K], desc [B, K, D], valid [B, K]."""
+        kpts_uv [B, K, 2], scores [B, K], desc [B, K, D], valid [B, K].
+
+        With `return_endpoints`, (out, ep): ep holds the maps the training
+        loss reads, channels-first where the JAX package's are channels-last:
+        max_heat [B, 1, H, W], max_scale [B, H, W], ori_maps [B, 2, H, W],
+        feat_maps [B, C, H, W] and photos_n [B, 1, H, W]."""
         c = self.cfg
         B, _, H, W = photos.shape
         dev = photos.device
         photos_n = instance_norm(photos)
-        score_maps, ori_maps, _ = self.detector(photos_n)
+        score_maps, ori_maps, feat_maps = self.detector(photos_n)
         scale_factors = self.detector.scale_values
 
         scale_logits = torch.cat([resize_bilinear(instance_norm(sm), (H, W)) for sm in score_maps], dim=1)
@@ -225,12 +239,16 @@ class LFNet(nn.Module):
         patches = transformer_crop(photos_n, c.patch_size, batch_inds, kpts_flat,
                                    kpts_scale=kp_scale, kpts_ori=kp_ori)
         desc = self.descriptor(patches)
-        return FrontendOutput(
+        out = FrontendOutput(
             kpts_uv=kpts_flat.reshape(B, c.top_k, 2),
             scores=kp_scores,
             desc=desc.reshape(B, c.top_k, -1),
             valid=valid,
         )
+        if return_endpoints:
+            return out, {"max_heat": max_heat, "max_scale": max_scale, "ori_maps": ori_maps,
+                         "feat_maps": feat_maps, "photos_n": photos_n}
+        return out
 
 
 class LFNetApply(nn.Module):
@@ -298,6 +316,29 @@ def lfnet_state_dict_from_flax(flat_params) -> dict:
         return a.reshape(side, side, c, -1).transpose(2, 0, 1, 3).reshape(a.shape[0], -1)
 
     return state_dict_from_flax(flat_params, dense_kernel=reorder_fc1)
+
+
+def lfnet_flax_from_state_dict(sd) -> dict:
+    """The inverse of `lfnet_state_dict_from_flax`: the JAX package's flat
+    parameters from the port's state dict (OIHW -> HWIO, [out, in] ->
+    [in, out], fc1's input rows back to Flax's (h, w, c) order)."""
+    convs = sorted((k for k in sd if k.startswith("descriptor.conv") and k.endswith(".weight")),
+                   key=lambda k: int(k.split(".")[1][len("conv"):]))
+    c = sd[convs[-1]].shape[0]  # channels of the last descriptor conv
+
+    def reorder_fc1(name, a):
+        if name != "descriptor/fc1/kernel":
+            return a
+        side = math.isqrt(a.shape[0] // c)
+        return a.reshape(c, side, side, -1).transpose(1, 2, 0, 3).reshape(a.shape[0], -1)
+
+    return flax_from_state_dict(sd, dense_kernel=reorder_fc1)
+
+
+def save_params_npz(path: str, sd) -> None:
+    """Write an LF-Net state dict as the JAX package's npz
+    (`checkpoints/lfnet_params.npz`'s layout), which both packages load."""
+    params_io.save_params_npz(path, lfnet_flax_from_state_dict(sd))
 
 
 def load_params_npz(path: str, cfg: FrontendConfig):

@@ -43,12 +43,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bundletrack_tpu_torch.device import resolve_device
-from bundletrack_tpu_torch.ops.numerics import flush_denormals
+from bundletrack_tpu_torch.ops.numerics import clip, flush_denormals
 from bundletrack_tpu_torch.ops.resize import resize_bilinear
 from bundletrack_tpu_torch.utils import params_io
 from bundletrack_tpu_torch.utils.flax_layers import (
     Conv,
     GroupNorm,
+    flax_from_state_dict,
     flax_param_shapes,
     state_dict_from_flax,
 )
@@ -95,7 +96,7 @@ class VOSNet(nn.Module):
         x = self.Conv_1(x)
         # l2-normalise for cosine similarity; sqrt of the sum of squares, as jnp.linalg.norm
         norm = torch.sqrt(torch.sum(x * x, dim=1, keepdim=True))
-        return x / torch.clamp(norm, min=1e-6)
+        return x / clip(norm, 1e-6)
 
 
 def spatial_weight(h: int, w: int, sigma: float) -> torch.Tensor:
@@ -107,16 +108,41 @@ def spatial_weight(h: int, w: int, sigma: float) -> torch.Tensor:
     return torch.from_numpy(np.exp(-d2 / (sigma * sigma)))
 
 
-def _bf16_dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a [n, k] @ b [k, m] with both operands rounded to bf16, accumulated
-    and returned in f32 (jax.lax.dot_general with bf16 operands and
-    preferred_element_type=f32).  On the card, cuBLAS's bf16 GEMM with an
-    f32 output; on the CPU, the f32 product of the rounded operands, which
-    is exact per term."""
-    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
-    if a.is_cuda:
+def _mm_bf16_f32(a16: torch.Tensor, b16: torch.Tensor) -> torch.Tensor:
+    """bf16 a [n, k] @ bf16 b [k, m], accumulated and returned in f32.  On
+    the card, cuBLAS's bf16 GEMM with an f32 output; on the CPU, the f32
+    product of the operands, which is exact per term."""
+    if a16.is_cuda:
         return torch.mm(a16, b16, out_dtype=torch.float32)
     return a16.to(torch.float32) @ b16.to(torch.float32)
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+class Bf16DotF32(torch.autograd.Function):
+    """a [n, k] @ b [k, m] with both operands rounded to bf16, accumulated
+    and returned in f32 (jax.lax.dot_general with bf16 operands and
+    preferred_element_type=f32).
+
+    `torch.mm(..., out_dtype=f32)` has no derivative, so the backward is
+    written out as jax.grad computes it: the f32 product of the cotangent
+    with the other rounded operand, rounded to bf16 (the dtype of the
+    operand it is the gradient of), returned as f32."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        ctx.save_for_backward(a16, b16)
+        return _mm_bf16_f32(a16, b16)
+
+    @staticmethod
+    def backward(ctx, g):
+        a16, b16 = ctx.saved_tensors
+        ga = _round_bf16(g @ b16.to(torch.float32).t()) if ctx.needs_input_grad[0] else None
+        gb = _round_bf16(a16.to(torch.float32).t() @ g) if ctx.needs_input_grad[1] else None
+        return ga, gb
 
 
 def similarity(feats_ref: torch.Tensor, feat_tgt: torch.Tensor) -> torch.Tensor:
@@ -124,7 +150,7 @@ def similarity(feats_ref: torch.Tensor, feat_tgt: torch.Tensor) -> torch.Tensor:
     to the references' [R, C, h, w], as one bf16 product with an f32 result."""
     R, C = feats_ref.shape[:2]
     fr = feats_ref.reshape(R, C, -1).permute(1, 0, 2).reshape(C, -1)
-    return _bf16_dot_f32(feat_tgt.reshape(C, -1).t(), fr)
+    return Bf16DotF32.apply(feat_tgt.reshape(C, -1).t(), fr)
 
 
 def attention(sim, ref_valid, ref_is_recent, w_sigma1, w_sigma2, temperature) -> torch.Tensor:
@@ -147,6 +173,20 @@ def attention(sim, ref_valid, ref_is_recent, w_sigma1, w_sigma2, temperature) ->
     return att.view(N, R * N)
 
 
+def attention_train(sim, ref_valid, ref_is_recent, w_sigma1, w_sigma2, temperature) -> torch.Tensor:
+    """`attention` out of place, for autograd (which refuses the in-place
+    version's writes into the softmax's output); the same values."""
+    R = ref_valid.shape[0]
+    N = sim.shape[0]
+    if not torch.is_tensor(temperature):
+        temperature = torch.tensor(temperature, dtype=torch.float32)
+    sim = (sim / temperature).view(N, R, N).masked_fill(~ref_valid[None, :, None], float("-inf"))
+    att = torch.softmax(sim.reshape(N, R * N), dim=-1).view(N, R, N)
+    att = att * torch.where(ref_is_recent[None, :, None], w_sigma1[:, None, :], w_sigma2[:, None, :])
+    att = att / clip(att.sum(dim=(1, 2), keepdim=True), 1e-8)
+    return att.reshape(N, R * N)
+
+
 def label_product(att: torch.Tensor, labels_ref: torch.Tensor) -> torch.Tensor:
     """Soft labels [L, h, w]: the attention [N, R * N] times the references'
     labels [R, L, h, w]."""
@@ -166,8 +206,11 @@ def propagate_labels(
     temperature=1.0,
 ) -> torch.Tensor:
     """Soft target labels [L, h, w] by spatially weighted attention
-    (reference lib/predict.py:10-60)."""
-    att = attention(similarity(feats_ref, feat_tgt), ref_valid, ref_is_recent, w_sigma1, w_sigma2, temperature)
+    (reference lib/predict.py:10-60).  Where the similarity carries a
+    gradient (training), the attention is computed out of place."""
+    sim = similarity(feats_ref, feat_tgt)
+    att = (attention_train if sim.requires_grad else attention)(
+        sim, ref_valid, ref_is_recent, w_sigma1, w_sigma2, temperature)
     return label_product(att, labels_ref)
 
 
@@ -323,6 +366,13 @@ def vos_state_dict_from_flax(flat_params) -> dict:
     {"ResNetBlock_1/Conv_0/kernel": array, ...} (numpy arrays): conv
     kernels HWIO -> OIHW, the rest as they are, as f32."""
     return state_dict_from_flax(flat_params)
+
+
+def save_vos_npz(path: str, sd) -> None:
+    """Write a VOSNet state dict as the JAX package's npz
+    (`checkpoints/vos_params.npz`'s layout: the inverse of
+    `vos_state_dict_from_flax`, OIHW -> HWIO), which both packages load."""
+    params_io.save_params_npz(path, flax_from_state_dict(sd))
 
 
 def load_vos_npz(path: str):

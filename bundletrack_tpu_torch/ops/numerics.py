@@ -41,6 +41,20 @@ def flush_denormals(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.abs(x) < _F32_TINY, torch.zeros_like(x), x)
 
 
+def clip(x: torch.Tensor, lo: float | None = None, hi: float | None = None) -> torch.Tensor:
+    """x clipped to [lo, hi] with jnp.clip's gradient: torch.maximum and
+    torch.minimum against 0-dim bounds split the gradient of a tie 0.5 /
+    0.5, as jax's maximum and minimum do, where torch.clamp passes all of
+    it (a sample on an integer pixel has a bilinear fraction of exactly 0).
+    The values are torch.clamp's.  The bounds are f32 CPU scalars, which
+    every device takes without an upload."""
+    if lo is not None:
+        x = torch.maximum(x, _t(lo))
+    if hi is not None:
+        x = torch.minimum(x, _t(hi))
+    return x
+
+
 def cos_deg_f32(deg: float) -> float:
     """cos(deg2rad(f32(deg))) evaluated in f32."""
     return float(torch.cos(torch.deg2rad(_t(deg))))

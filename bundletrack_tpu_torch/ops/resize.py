@@ -48,10 +48,14 @@ def _weight_mat(in_size: int, out_size: int, inv_scale: torch.Tensor,
 @functools.lru_cache(maxsize=64)
 def _resize_weights(in_size: int, out_size: int, device: torch.device, dtype: torch.dtype):
     """Weights of a plain resize in_size -> out_size (the scale is a host
-    constant, as in jax.image.resize), built once per shape and device."""
-    inv_scale = torch.tensor(1.0 / (out_size / in_size), dtype=torch.float32)
-    w = _weight_mat(in_size, out_size, inv_scale, torch.zeros((), dtype=torch.float32))
-    return w.to(device=device, dtype=dtype)
+    constant, as in jax.image.resize), built once per shape and device.
+    Built outside inference mode even when first asked for inside it (the
+    LF-Net serving forward): the cached tensor is also used by training,
+    where autograd must save it."""
+    with torch.inference_mode(False):
+        inv_scale = torch.tensor(1.0 / (out_size / in_size), dtype=torch.float32)
+        w = _weight_mat(in_size, out_size, inv_scale, torch.zeros((), dtype=torch.float32))
+        return w.to(device=device, dtype=dtype)
 
 
 def resize_bilinear(img: torch.Tensor, out_hw) -> torch.Tensor:

@@ -23,6 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from bundletrack_tpu_torch.ops.numerics import clip
+
 
 def same_pads(size: int, k: int, stride: int):
     """(before, after) zero padding of XLA's "SAME" on one axis."""
@@ -88,7 +90,7 @@ class GroupNorm(nn.Module):
         g = x.reshape(B, G, C // G, -1)  # [B, group, channel in group, the other axes]
         mu = torch.mean(g, dim=(2, 3), keepdim=True)
         mu2 = torch.mean(g * g, dim=(2, 3), keepdim=True)
-        var = torch.clamp(mu2 - mu * mu, min=0.0)
+        var = clip(mu2 - mu * mu, 0.0)  # jnp.maximum(0, .): a tie splits its gradient
         # Flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
         mul = torch.rsqrt(var + self.eps) * self.scale.view(1, G, C // G, 1)
         return ((g - mu) * mul + self.bias.view(1, G, C // G, 1)).reshape(x.shape)
@@ -132,3 +134,21 @@ def state_dict_from_flax(flat_params, dense_kernel=None) -> dict:
                 a = a.T
         sd[key] = torch.from_numpy(np.ascontiguousarray(a))
     return sd
+
+
+def flax_from_state_dict(sd, dense_kernel=None) -> dict:
+    """The inverse of `state_dict_from_flax`: flat Flax parameters {"a/b/kernel":
+    f32 numpy array} from a state dict; conv kernels OIHW -> HWIO, dense
+    kernels [out, in] -> [in, out].  `dense_kernel(name, array)`, when given,
+    may rewrite a dense kernel after the transpose (then [in, out])."""
+    flat = {}
+    for key, t in sd.items():
+        a = t.detach().to("cpu", torch.float32).numpy()
+        module, leaf = key.rsplit(".", 1)
+        name = module.replace(".", "/") + "/" + ("kernel" if _is_kernel(key, t) else leaf)
+        if _is_kernel(key, t):
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            if a.ndim == 2 and dense_kernel is not None:
+                a = dense_kernel(name, a)
+        flat[name] = np.ascontiguousarray(a)
+    return flat

@@ -1,9 +1,10 @@
-"""Single-file npz parameter files, read without flax.
+"""Single-file npz parameter files, read and written without flax.
 
 Counterpart of bundletrack_tpu/utils/params_io.py.  A file holds one array
 per parameter under its flat name (`detector/block_1/conv1/kernel`), floats
 stored as float16.  Reading restores floats as float32 and checks every
-name and shape against what the model expects.
+name and shape against what the model expects.  Files the port writes are
+files the JAX package reads, and the other way round.
 """
 
 from __future__ import annotations
@@ -34,3 +35,14 @@ def load_params_npz(path: str, like: Mapping[str, tuple]) -> dict:
     if extra:
         raise ValueError(f"checkpoint {path} has unknown params: {sorted(extra)}")
     return flat
+
+
+def save_params_npz(path: str, flat: Mapping[str, np.ndarray]) -> None:
+    """Write {flat name: array} (the JAX package's layout: conv kernels HWIO,
+    dense kernels [in, out]) to one compressed npz, float32 stored as
+    float16, as the JAX package writes it."""
+    out = {}
+    for k, v in flat.items():
+        a = np.asarray(v)
+        out[k] = a.astype(np.float16) if a.dtype == np.float32 else a
+    np.savez_compressed(path, **out)

@@ -101,7 +101,28 @@
    pairs), card against CPU within DENSE_CARD_RTOL, timed beside the
    depth term alone and the compaction; fuse_depth_frames on 16 480x640
    depth maps, card against CPU within FUSION_ATOL_M, timed.
-16. Prints one JSON line describing every kernel (the matcher's launches
+16. Train LF-Net phase, at the shipped widths (the default FrontendConfig,
+   f32): one make_lfnet_train_step from the same weights on the same batch
+   on the card and on the CPU (loss within TRAIN_CARD_LOSS_RTOL, every
+   gradient's cosine >= TRAIN_CARD_GRAD_COS_MIN, the score convs' biases,
+   zero in exact arithmetic, logged only), the step timed at the CLI's
+   defaults; `apps.train_lfnet.main` at its defaults (96x96, batch 8,
+   top-k 128) for 20 steps with a checkpoint at step 10, every loss finite
+   and the mean of the last 5 at most the mean of the first 5 + 1e-3; a
+   run resumed from the step-10 checkpoint must end within
+   TRAIN_RESUME_RTOL of the uninterrupted run's parameters (both with
+   deterministic algorithms); the step timed at the serving shape
+   (400x400, top-k 512, batch 8): ms per step by CUDA events, peak memory,
+   launches and device time per step from the profiler.
+17. Train VOS phase, at the shipped width 96 warm-started from
+   checkpoints/vos_params.npz: card against CPU for one plain and one
+   rollout step (the same bars); `apps.train_vos.main` at its defaults
+   (96x96, batch 4, clip 4) for 20 plain and 20 --rollout steps, every
+   loss finite; `apps.run_vos --checkpoint <ckpt>/params` with the plain
+   run's weights on phase 6's frames (mean and min IoU bars
+   VOS_TRAINED_*); plain and rollout steps timed at 96x96 and 256x256.
+   The training phases launch the matcher 0 times.
+18. Prints one JSON line describing every kernel (the matcher's launches
    summed over phases 3, 5, 7-14), the card's line, and as its last line
    {"ok": true, "device": {...}}.
 
@@ -112,9 +133,11 @@ printed.  Without a CUDA device, or without the package beside it, it fails.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import multiprocessing
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -185,6 +208,32 @@ DENSE_CARD_RTOL, DENSE_COUNT_DIFF = 1e-3, 4
 # fusion on the card against the CPU: the same elementwise f32 arithmetic,
 # the sums of <= 16 depths per pixel in another order (atomics)
 FUSION_ATOL_M = 1e-5
+
+# Training.  Card against CPU for one step from the same weights on
+# the same batch (f32, TF32 off): the loss within this relative bar, and
+# every gradient tensor's cosine with the CPU's at least this; the LF-Net
+# score convs' biases are left out of the cosine bar (logged): the instance
+# norm after each score map removes them, so their gradient is 0 in exact
+# arithmetic and rounding noise on both devices
+TRAIN_CARD_LOSS_RTOL, TRAIN_CARD_GRAD_COS_MIN = 1e-3, 0.99
+TRAIN_NOISE_GRADS = ("detector.score_conv_",)  # with ".bias"
+TRAIN_STEPS, TRAIN_CKPT_STEP = 20, 10
+# tests/test_train_apps.py's trend bar: the mean of the last losses at most
+# the mean of the first plus 1e-3
+TRAIN_TREND_N, TRAIN_TREND_SLACK = 5, 1e-3
+# a run resumed from the step-10 checkpoint against the uninterrupted run,
+# both with deterministic algorithms: every tensor's max |difference| over
+# its max |value| (the checkpoint is exact; what is left is any kernel that
+# has no deterministic version); the score convs' biases are logged, not
+# barred (Adam turns their noise gradients into full-size steps)
+TRAIN_RESUME_RTOL = 1e-4
+TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS, TRAIN_PROFILED_STEPS = 2, 5, 2
+LFNET_SERVE_SIZE, LFNET_SERVE_TOPK = 400, 512  # the serving shape (FrontendConfig defaults)
+VOS_TRAIN_SIZES = (96, 256)
+# run_vos with the weights of 20 plain train_vos steps from the shipped
+# ones (CLI defaults: easy world, 96x96, lr 1e-3) on the VOS phase's frames;
+# the port on the CPU reached mean 0.9729, min 0.9667 there
+VOS_TRAINED_MEAN_IOU_MIN, VOS_TRAINED_MIN_IOU_MIN = 0.95, 0.93
 
 # Published peaks of one H100 SXM (dense): HBM bytes/s and bf16 tensor-core
 # FLOP/s; and the f32 instruction rate outside the tensor cores, 132 SMs x
@@ -1350,6 +1399,242 @@ def verify_reject_phase(seq, card: str) -> int:
     return launches
 
 
+# ---- training -----------------------------------------------------------------
+
+
+def run_cli(main, argv) -> tuple:
+    """(JSON metric lines, wall s) of a trainer's main(argv)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    return lines, time.perf_counter() - t0
+
+
+def check_losses(name: str, lines, steps: int, trend: bool) -> list:
+    losses = [line["loss"] for line in lines]
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: {len(losses)} losses for {steps} steps, or one not finite: {losses}")
+    head, tail = float(np.mean(losses[:TRAIN_TREND_N])), float(np.mean(losses[-TRAIN_TREND_N:]))
+    log(f"{name}: losses " + " ".join(f"{x:.4f}" for x in losses)
+        + f"; mean of the first {TRAIN_TREND_N} {head:.5f}, of the last {tail:.5f}")
+    if trend and tail > head + TRAIN_TREND_SLACK:
+        raise AssertionError(f"{name}: mean of the last losses {tail} > mean of the first {head} + {TRAIN_TREND_SLACK}")
+    return losses
+
+
+def card_vs_cpu_step(name: str, make, batch_np, fields, card: str) -> None:
+    """One training step from the same weights on the same batch on the
+    card and on the CPU: the relative loss difference and each gradient
+    tensor's cosine.  `make(device)` -> (model, step)."""
+    import torch
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model, step = make(dev)
+        batch = [torch.from_numpy(batch_np[k]).to(dev) for k in fields]
+        metrics = step(batch)
+        runs[dev] = (float(metrics["loss"]), {n: p.grad.detach().double().cpu().flatten()
+                                              for n, p in model.named_parameters() if p.grad is not None})
+    (loss_card, g_card), (loss_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+    if set(g_card) != set(g_cpu):
+        raise AssertionError(f"{name}: card and CPU differ in which tensors get a gradient")
+    rel = abs(loss_card - loss_cpu) / max(abs(loss_cpu), 1e-12)
+    cos, noise = {}, {}
+    for n in g_cpu:
+        c = float(g_card[n] @ g_cpu[n] / (g_card[n].norm() * g_cpu[n].norm() + 1e-300))
+        (noise if n.startswith(TRAIN_NOISE_GRADS) and n.endswith(".bias") else cos)[n] = c
+    worst = min(cos, key=cos.get)
+    log(f"{name}: card vs CPU, one step: loss {loss_card:.7g} / {loss_cpu:.7g} (relative {rel:.3e}, bar "
+        f"{TRAIN_CARD_LOSS_RTOL}); gradient cosine min {cos[worst]:.6f} ({worst}), median "
+        f"{float(np.median(list(cos.values()))):.6f} over {len(cos)} tensors (bar {TRAIN_CARD_GRAD_COS_MIN})"
+        + (f"; zero-in-exact-arithmetic biases (not barred): "
+           + ", ".join(f"{n} {c:.3f}" for n, c in noise.items()) if noise else "") + f" [{card}]")
+    if rel > TRAIN_CARD_LOSS_RTOL or cos[worst] < TRAIN_CARD_GRAD_COS_MIN:
+        raise AssertionError(f"{name}: card and CPU steps disagree beyond the bars")
+
+
+def timed_steps(name: str, step, batch, card: str) -> tuple:
+    """(ms per step by CUDA events, median of TRAIN_TIMED_STEPS after
+    TRAIN_WARMUP_STEPS, peak MiB) of step(batch); then TRAIN_PROFILED_STEPS
+    more under utils/profiling.trace for launches and device time per step."""
+    import collections
+
+    import torch
+
+    from bundletrack_tpu_torch.cardrun import cuda_median_ms
+    from bundletrack_tpu_torch.utils.profiling import trace
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_median_ms(lambda: step(batch), runs=TRAIN_TIMED_STEPS, warmup=TRAIN_WARMUP_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as log_dir:
+        with trace(log_dir) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_PROFILED_STEPS):
+                step(batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = collections.Counter()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3 / TRAIN_PROFILED_STEPS
+    device_ms = sum(by_name.values())
+    log(f"{name}: {ms:.2f} ms per step (CUDA events, median of {TRAIN_TIMED_STEPS} after "
+        f"{TRAIN_WARMUP_STEPS} warm-up steps), peak {peak:.1f} MiB; profiler: {len(kernels) / TRAIN_PROFILED_STEPS:.0f} "
+        f"launches, {device_ms:.3f} ms device time per step, busy {100 * device_ms * TRAIN_PROFILED_STEPS / wall_ms:.1f} %; "
+        "top: " + "; ".join(f"{t:.3f} ms {n[:60]}" for n, t in by_name.most_common(3)) + f" [{card}]")
+    return ms, peak
+
+
+def compare_params(name: str, dir_a: str, dir_b: str, like) -> float:
+    """Max over tensors of max |a - b| / max |a| between two params/ checkpoints."""
+    from bundletrack_tpu_torch.utils.checkpoint import restore_tracker_state
+
+    a, b = restore_tracker_state(dir_a, like), restore_tracker_state(dir_b, like)
+    worst, noise = 0.0, []
+    for n in a:
+        r = float((a[n] - b[n]).abs().max() / a[n].abs().max().clamp(min=1e-30))
+        if n.startswith(TRAIN_NOISE_GRADS) and n.endswith(".bias"):
+            noise.append(f"{n} {r:.3e}")
+        else:
+            worst = max(worst, r)
+    log(f"{name}: resumed vs uninterrupted parameters: max relative difference {worst:.3e} (bar {TRAIN_RESUME_RTOL})"
+        + (f"; score-conv biases (not barred): {', '.join(noise)}" if noise else ""))
+    return worst
+
+
+def train_lfnet_phase(seq, card: str) -> None:
+    """The LF-Net trainer at the shipped widths: card against CPU for one
+    step, the CLI at its defaults for 20 steps with a checkpoint at 10 and
+    a resume from it, and the serving shape timed."""
+    import torch
+
+    from bundletrack_tpu_torch.apps import train_lfnet
+    from bundletrack_tpu_torch.config import FrontendConfig
+    from bundletrack_tpu_torch.data.pairs import lfnet_roi_pair_batch
+    from bundletrack_tpu_torch.frontend.lfnet import init_lfnet
+    from bundletrack_tpu_torch.models import LFNetTrainBatch, make_adam, make_lfnet_train_step
+
+    cfg = FrontendConfig(kind="lfnet", input_size=96, top_k=128, bf16=False)  # the CLI's defaults
+
+    def make(dev, cfg=cfg):
+        model, _ = init_lfnet(cfg, seed=0)
+        model.to(dev)
+        step = make_lfnet_train_step(model, make_adam(model.parameters(), 1e-3))
+        return model, lambda b: step(LFNetTrainBatch(*b))
+
+    pool = train_lfnet.build_batches(96, 8, 8, 0)
+    card_vs_cpu_step("train_lfnet", make, pool[0], LFNetTrainBatch._fields, card)
+    model, step = make("cuda")
+    timed_steps("train_lfnet at the CLI's defaults (96x96, top-k 128, batch 8, f32)", step,
+                [torch.from_numpy(pool[0][k]).cuda() for k in LFNetTrainBatch._fields], card)
+    del model, step
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lfnet_train_") as root:
+        a, b = os.path.join(root, "a"), os.path.join(root, "b")
+        save = train_lfnet.save_checkpoint
+
+        def save_and_copy(ckpt_dir, step, *rest):
+            save(ckpt_dir, step, *rest)
+            if step == TRAIN_CKPT_STEP:
+                shutil.copytree(ckpt_dir, b)
+
+        argv = ["--steps", str(TRAIN_STEPS), "--log-every", "1", "--ckpt-every", str(TRAIN_CKPT_STEP)]
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            train_lfnet.save_checkpoint = save_and_copy
+            try:
+                lines, s_a = run_cli(train_lfnet.main, argv + ["--ckpt-dir", a])
+            finally:
+                train_lfnet.save_checkpoint = save
+            resumed, s_b = run_cli(train_lfnet.main, argv + ["--ckpt-dir", b, "--resume"])
+        finally:
+            torch.use_deterministic_algorithms(False)
+        check_losses("train_lfnet CLI (--size 96 --batch 8 --top-k 128)", lines, TRAIN_STEPS, trend=True)
+        log(f"train_lfnet CLI: {TRAIN_STEPS} steps in {s_a:.1f} s, resumed run ({TRAIN_STEPS - TRAIN_CKPT_STEP} "
+            f"steps) {s_b:.1f} s, both rendering their pool")
+        if [line["step"] for line in resumed] != list(range(TRAIN_CKPT_STEP + 1, TRAIN_STEPS + 1)):
+            raise AssertionError(f"train_lfnet: the resumed run logged steps {[line['step'] for line in resumed]}")
+        like = init_lfnet(cfg)[1]
+        if compare_params("train_lfnet", os.path.join(a, "params"), os.path.join(b, "params"), like) > TRAIN_RESUME_RTOL:
+            raise AssertionError("train_lfnet: the resumed run ends away from the uninterrupted one")
+
+    serve = FrontendConfig(kind="lfnet", input_size=LFNET_SERVE_SIZE, top_k=LFNET_SERVE_TOPK, bf16=False)
+    pairs = [(i, i + 1 + i % 4) for i in range(8)]
+    batch_np = lfnet_roi_pair_batch(seq, pairs, LFNET_SERVE_SIZE, rng=np.random.RandomState(0))
+    model, step = make("cuda", serve)
+    batch = [torch.from_numpy(batch_np[k]).cuda() for k in LFNetTrainBatch._fields]
+    timed_steps(f"train_lfnet at the serving shape ({LFNET_SERVE_SIZE}x{LFNET_SERVE_SIZE}, top-k "
+                f"{LFNET_SERVE_TOPK}, batch 8, f32)", step, batch, card)
+    del model, step, batch
+    torch.cuda.empty_cache()
+
+
+def train_vos_phase(seq, card: str) -> None:
+    """The VOS trainer at the shipped width 96, warm-started from the
+    shipped weights: card against CPU for one step, 20 plain and 20
+    rollout steps of the CLI at its defaults, steps timed at two sizes,
+    and run_vos on the plain run's checkpoint."""
+    import torch
+
+    from bundletrack_tpu_torch.apps import run_vos, train_vos
+    from bundletrack_tpu_torch.apps.run_vos import VOS_CKPT
+    from bundletrack_tpu_torch.data.export import export_ycbineoat_sequence
+    from bundletrack_tpu_torch.data.native_io import read_png
+    from bundletrack_tpu_torch.eval.vos_eval import mask_iou
+    from bundletrack_tpu_torch.models import VOSTrainBatch, make_adam, make_vos_train_step
+    from bundletrack_tpu_torch.models.vos import load_vos_npz
+
+    def make(dev, size=96, rollout=False):
+        model, _ = load_vos_npz(VOS_CKPT)
+        model.to(dev)
+        step = make_vos_train_step(model, make_adam(model.parameters(), 1e-3), (size, size), rollout=rollout)
+        return model, lambda b: step(VOSTrainBatch(*b))
+
+    # a hard-world clip (stride 3) on which the shipped weights still err
+    # (loss 0.017 plain, 0.047 rollout, on the CPU): on the CLI's easy clips
+    # their loss is ~1e-7, where f32 rounding of p ~ 1 decides -log p
+    clip = train_vos.build_clips(96, 4, 4, 3, 0, "hard", 35)[2]
+    card_vs_cpu_step("train_vos", make, clip, VOSTrainBatch._fields, card)
+    card_vs_cpu_step("train_vos --rollout", lambda dev: make(dev, rollout=True), clip, VOSTrainBatch._fields, card)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vos_train_") as root:
+        ckpt = os.path.join(root, "ckpt")
+        argv = ["--steps", str(TRAIN_STEPS), "--log-every", "1", "--init-npz", VOS_CKPT, "--width", "96"]
+        plain, s_plain = run_cli(train_vos.main, argv + ["--ckpt-dir", ckpt])
+        rollout, s_roll = run_cli(train_vos.main, argv + ["--rollout"])
+        check_losses("train_vos CLI (--size 96 --batch 4 --clip-len 4, warm start)", plain, TRAIN_STEPS, trend=False)
+        check_losses("train_vos CLI --rollout", rollout, TRAIN_STEPS, trend=False)
+        log(f"train_vos CLI: {TRAIN_STEPS} plain steps in {s_plain:.1f} s, {TRAIN_STEPS} rollout steps in "
+            f"{s_roll:.1f} s; last iou {plain[-1]['iou']:.4f} / iou_last {rollout[-1]['iou_last']:.4f}")
+
+        data_dir = export_ycbineoat_sequence(seq, os.path.join(root, "cube"))
+        out = os.path.join(root, "masks")
+        run_vos.main(["--img_dir", os.path.join(data_dir, "rgb"), "--init_mask_file",
+                      os.path.join(data_dir, "masks", "00000.png"), "--mask_save_dir", out,
+                      "--checkpoint", os.path.join(ckpt, "params")])
+        names = sorted(os.listdir(out))[1:]  # frame 0 is the given mask
+        ious = [mask_iou(read_png(os.path.join(out, n)) > 0, seq.mask[f + 1]) for f, n in enumerate(names)]
+    log(f"train_vos: run_vos --checkpoint <ckpt>/params (width 96 after {TRAIN_STEPS} steps) on the "
+        f"{len(seq.gray)} VOS frames: mean IoU {np.mean(ious):.4f}, min {np.min(ious):.4f} over {len(ious)} "
+        f"propagated frames (bars >= {VOS_TRAINED_MEAN_IOU_MIN}, >= {VOS_TRAINED_MIN_IOU_MIN}) [{card}]")
+    if np.mean(ious) < VOS_TRAINED_MEAN_IOU_MIN or np.min(ious) < VOS_TRAINED_MIN_IOU_MIN:
+        raise AssertionError("train_vos: the trained weights' IoU bars missed")
+
+    for size in VOS_TRAIN_SIZES:
+        clips = train_vos.build_clips(size, 4, 4, 1, 0, "easy", 35)[0]
+        batch = [torch.from_numpy(clips[k]).cuda() for k in VOSTrainBatch._fields]
+        for rollout in (False, True):
+            model, step = make("cuda", size, rollout)
+            timed_steps(f"train_vos {'--rollout ' if rollout else ''}at {size}x{size} (width 96, batch 4, "
+                        f"clip 4)", step, batch, card)
+            del model, step
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1416,6 +1701,17 @@ def main() -> int:
     t0 = time.perf_counter()
     photometric_fusion_phase(seq, card)
     phase_s["photometric and fusion"] = time.perf_counter() - t0
+    from bundletrack_tpu_torch.kernels import matching as km
+
+    km.launches = 0
+    t0 = time.perf_counter()
+    train_lfnet_phase(seq, card)
+    phase_s["train lfnet"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_vos_phase(seq, card)
+    phase_s["train vos"] = time.perf_counter() - t0
+    if km.launches:  # the training paths reach no kernel of the port
+        raise AssertionError(f"training phases launched the matcher {km.launches} times")
     launches = {
         "classical tracker phase": classical_launches, "lfnet CLI phase (filter 0 and filtered PNGs)": cli_launches,
         "VOS chain": vos_chain_launches, "NOCS chain": nocs_launches, "fleet": fleet_launches,
@@ -1423,7 +1719,7 @@ def main() -> int:
         "lfnet fleet": lfnet_fleet_launches, "pcg tracker": pcg_launches,
     }
     kernel["launches"] = sum(launches.values())
-    log("matcher launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    log("matcher launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()) + "; training phases 0")
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     log(json.dumps({"kernels": [kernel]}))

@@ -5,7 +5,8 @@ chip_smoke.py; and at run time, in a fresh interpreter that imports the port,
 tracks two frames on the CPU with each frontend and with a fleet of two
 streams, runs the CLI chain, run_vos on two frames, one NOCS frame
 through run_tracking --dataset nocs, the hard suite and the frontend
-metrics on one tiny hard pass, and reads a Paeth-filtered PNG.
+metrics on one tiny hard pass, reads a Paeth-filtered PNG, and trains
+LF-Net for two steps (then resumes for a third) and VOS for one.
 """
 
 import ast
@@ -113,6 +114,17 @@ from bundletrack_tpu_torch.data.native_io import read_png, write_png
 with tempfile.TemporaryDirectory() as root:
     write_png(os.path.join(root, "x.png"), (hard.gray[0] * 255).astype(np.uint8), filter_type=4)
     assert np.array_equal(read_png(os.path.join(root, "x.png")), (hard.gray[0] * 255).astype(np.uint8))
+from bundletrack_tpu_torch.apps import train_lfnet, train_vos
+with tempfile.TemporaryDirectory() as root:
+    small = ["--size", "32", "--batch", "2", "--num-seqs", "1", "--log-every", "1", "--device", "cpu"]
+    train_lfnet.main(["--steps", "2", "--top-k", "16", "--desc-dim", "32", "--net-channel", "8", "--num-scales", "3",
+                      "--desc-channel", "16", "--sm-ksize", "5", "--ckpt-dir", os.path.join(root, "lf"),
+                      "--ckpt-every", "1"] + small)
+    train_lfnet.main(["--steps", "3", "--resume", "--top-k", "16", "--desc-dim", "32", "--net-channel", "8",
+                      "--num-scales", "3", "--desc-channel", "16", "--sm-ksize", "5", "--ckpt-dir",
+                      os.path.join(root, "lf")] + small)
+    train_vos.main(["--steps", "1", "--clip-len", "3", "--width", "8", "--rollout",
+                    "--ckpt-dir", os.path.join(root, "vos")] + small)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax") or m == "bundletrack_tpu"
              or m.startswith("bundletrack_tpu."))
@@ -128,7 +140,9 @@ def test_scan_covers_every_module_of_the_slices():
                    "utils/flax_layers.py", "models/vos.py", "eval/vos_eval.py", "apps/run_vos.py", "ops/masks.py",
                    "data/nocs.py", "eval/nocs_protocol.py", "apps/eval_nocs.py", "vos_bench.py",
                    "parallel/fleet.py", "fleet_bench.py", "data/hard_world.py", "data/pairs.py",
-                   "eval/hard_suite.py", "eval/frontend_eval.py"):
+                   "eval/hard_suite.py", "eval/frontend_eval.py", "models/lfnet_train.py", "models/vos_train.py",
+                   "models/optim.py", "apps/train_lfnet.py", "apps/train_vos.py", "utils/checkpoint.py",
+                   "utils/timing.py", "utils/profiling.py", "utils/viz.py", "frontend/port_tf1.py"):
         assert os.path.join("bundletrack_tpu_torch", module) in scanned, module
 
 

@@ -302,3 +302,57 @@ def test_pcg_solve_on_the_card_matches_the_cpu(batch):
     # f32 with TF32 off on both devices: the einsum's and the dot products'
     # sums run in another order
     np.testing.assert_allclose(card.numpy(), cpu.numpy(), atol=1e-5 * float(cpu.abs().max()))
+
+
+def _grads(model):
+    return {n: p.grad.detach().double().cpu().flatten() for n, p in model.named_parameters() if p.grad is not None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["lfnet", "vos", "vos_rollout"])
+def test_training_step_on_the_card_matches_the_cpu(net):
+    """One training step from the same weights on the same batch on both
+    devices (f32, TF32 off): the loss within 1e-3 relative, each gradient
+    tensor's cosine >= 0.99.  The LF-Net score convs' biases are left out:
+    the instance norm after each score map removes them, so their gradient
+    is rounding noise."""
+    from bundletrack_tpu_torch.apps import train_lfnet, train_vos
+    from bundletrack_tpu_torch.frontend.lfnet import init_lfnet
+    from bundletrack_tpu_torch.models import (
+        LFNetTrainBatch,
+        VOSTrainBatch,
+        make_adam,
+        make_lfnet_train_step,
+        make_vos_train_step,
+    )
+    from bundletrack_tpu_torch.models.vos import init_vos
+
+    _need_card()
+    if net == "lfnet":
+        cfg = FrontendConfig(kind="lfnet", input_size=64, top_k=32, net_channel=8, net_num_scales=3,
+                             desc_net_channel=16, desc_dim=32, sm_ksize=5, bf16=False)
+        batch_np = train_lfnet.build_batches(64, 2, 2, seed=0, num_batches=1)[0]
+        fields, Batch = LFNetTrainBatch._fields, LFNetTrainBatch
+    else:
+        batch_np = train_vos.build_clips(32, 2, 3, 1, 0, "easy", 35)[0]
+        fields, Batch = VOSTrainBatch._fields, VOSTrainBatch
+    runs = {}
+    for device in ("cuda", "cpu"):
+        if net == "lfnet":
+            model = init_lfnet(cfg, seed=1)[0].to(device)
+            step = make_lfnet_train_step(model, make_adam(model.parameters(), 1e-3))
+        else:
+            model = init_vos(out_dim=32, width=16, seed=1)[0].to(device)
+            step = make_vos_train_step(model, make_adam(model.parameters(), 1e-3), (32, 32),
+                                       rollout=net == "vos_rollout")
+        metrics = step(Batch(*(torch.from_numpy(batch_np[k]).to(device) for k in fields)))
+        assert metrics["loss"].device.type == device
+        runs[device] = float(metrics["loss"]), _grads(model)
+    (loss_card, g_card), (loss_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+    assert np.isfinite(loss_card) and abs(loss_card - loss_cpu) <= 1e-3 * abs(loss_cpu)
+    assert set(g_card) == set(g_cpu)
+    for n in g_cpu:
+        if n.startswith("detector.score_conv_") and n.endswith(".bias"):
+            continue
+        cos = float(g_card[n] @ g_cpu[n] / (g_card[n].norm() * g_cpu[n].norm()))
+        assert cos >= 0.99, (n, cos)

@@ -400,7 +400,8 @@ def test_run_vos_refuses_an_orbax_directory(tmp_path):
     img_dir, init = _write_frames(tmp_path, seq)
     ckpt_dir = tmp_path / "params"
     ckpt_dir.mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
+    # a directory without the port's state.npz (an orbax one) cannot be read here
+    with pytest.raises(ValueError, match="orbax checkpoint .* is unreadable here"):
         run_vos.main(["--img_dir", img_dir, "--init_mask_file", init, "--mask_save_dir", str(tmp_path / "m"),
                       "--checkpoint", str(ckpt_dir), "--device", "cpu"])
 
