@@ -5,12 +5,21 @@ lf-net-release/train_lfnet.py).  The same two objectives
 (models/lfnet_train.py) on warp-annotated pairs from the rendered worlds,
 with Adam and optax's cosine decay, `.npz` checkpoints and resume
 (utils/checkpoint.py), and a JSON metrics line per log interval.  Runs on
-the card unless --device says otherwise; a mesh over more than one device
-is not ported.
+the card unless --device says otherwise.
+
+Over several ranks (one process per card, started by torchrun), --mesh
+sets data x tensor parallelism as the JAX app reads it from the device
+count: "auto" is (n/2, 2) for an even world of n ranks and (n, 1)
+otherwise, "dp,tp" is explicit and must multiply to n; a world of one rank
+trains on one device whatever --mesh says.  Every rank builds the same
+pool of global batches from the seed and trains on its block of each;
+rank 0 alone logs and writes checkpoints, which hold whole tensors in the
+one-device layout.
 
 Usage:
     python -m bundletrack_tpu_torch.apps.train_lfnet --steps 500 --size 96 \
         --batch 8 --ckpt-dir ckpt/lfnet [--resume] [--device cpu]
+    torchrun --nproc-per-node 4 -m bundletrack_tpu_torch.apps.train_lfnet --mesh 2,2 ...
 
 The checkpoint directory holds `params/` (the model's state dict),
 `opt_state/` (Adam's state dict) and `meta.json` (the step and the flags);
@@ -80,27 +89,45 @@ def build_batches(size: int, batch: int, num_seqs: int, seed: int, world: str = 
     return pool
 
 
-def check_single_device(mesh: str, device, tool: str) -> None:
-    """`--mesh none`, and `auto` where one device is attached, train on that
-    device; a mesh over more than one device raises, as the sharded steps
-    are not ported."""
-    import torch
+def training_mesh(mesh: str, tool: str, axes=("data", "model")):
+    """A trainer's mesh over the world's ranks (the process group
+    initialize_multihost joined under torchrun), or None for one rank,
+    which trains on one device whatever --mesh says.  Over several ranks,
+    --mesh "none" raises (each rank would train alone), and a mesh whose
+    size is not the world's raises ValueError."""
+    from bundletrack_tpu_torch.parallel.distributed import make_mesh, world_size
 
-    from bundletrack_tpu_torch.parallel.fleet import NOT_PORTED
-
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    if mesh == "none" or (mesh == "auto" and n_dev == 1):
-        return
-    raise NotImplementedError(f"{tool} --mesh {mesh} over {n_dev} device(s): training over a device mesh {NOT_PORTED}")
+    n = world_size()
+    if n == 1:
+        return None
+    if mesh == "none":
+        raise ValueError(f"{tool} --mesh none trains on one device: run it as one process, not {n} ranks")
+    if mesh == "auto" and len(axes) == 1:
+        sizes = (n,)
+    elif mesh == "auto":  # the JAX app's (dp, tp) for n devices
+        sizes = (n // 2, 2) if n % 2 == 0 else (n, 1)
+    else:
+        sizes = tuple(int(x) for x in mesh.split(","))
+    if len(sizes) != len(axes):
+        raise ValueError(f"{tool} --mesh {mesh}: expected {len(axes)} size(s) for {axes}")
+    print(f"[{tool}] mesh " + " ".join(f"{a}={s}" for a, s in zip(axes, sizes)), file=sys.stderr)
+    return make_mesh(dict(zip(axes, sizes)))
 
 
 def save_checkpoint(ckpt_dir: str, step: int, model, optimizer, meta: dict) -> None:
-    """params/, opt_state/ (when `optimizer` is given) and meta.json in ckpt_dir."""
+    """params/, opt_state/ (when `optimizer` is given) and meta.json in
+    ckpt_dir, every tensor whole (a tensor-parallel model's shards are
+    gathered: every rank calls this, rank 0 writes)."""
+    from bundletrack_tpu_torch.parallel.distributed import world_rank
+    from bundletrack_tpu_torch.parallel.fleet import unsharded_state_dicts
     from bundletrack_tpu_torch.utils.checkpoint import save_tracker_state
 
-    save_tracker_state(os.path.join(ckpt_dir, "params"), model.state_dict())
+    params, opt_state = unsharded_state_dicts(model, optimizer)
+    if world_rank() != 0:
+        return
+    save_tracker_state(os.path.join(ckpt_dir, "params"), params)
     if optimizer is not None:
-        save_tracker_state(os.path.join(ckpt_dir, "opt_state"), optimizer.state_dict())
+        save_tracker_state(os.path.join(ckpt_dir, "opt_state"), opt_state)
     with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
         json.dump({"step": step, **meta}, f)
 
@@ -127,20 +154,23 @@ def main(argv=None):
     parser.add_argument("--ckpt-every", type=int, default=100)
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--log-every", type=int, default=10)
-    parser.add_argument("--mesh", default="auto", help='"auto" or "none" (one device); "dp,tp" is not ported')
+    parser.add_argument("--mesh", default="auto",
+                        help='over torchrun ranks: "auto", "dp,tp" or "none"; one rank trains on one device')
     parser.add_argument("--device", default=None, help="torch device; the CUDA card when not given")
     args = parser.parse_args(argv)
 
     import torch
 
     from bundletrack_tpu_torch.config import FrontendConfig
-    from bundletrack_tpu_torch.device import resolve_device
     from bundletrack_tpu_torch.frontend.lfnet import init_lfnet
     from bundletrack_tpu_torch.models import LFNetTrainBatch, cosine_schedule, make_adam, make_lfnet_train_step
+    from bundletrack_tpu_torch.parallel.distributed import initialize_multihost, world_rank
+    from bundletrack_tpu_torch.parallel.fleet import make_sharded_lfnet_train_step
     from bundletrack_tpu_torch.utils.checkpoint import restore_tracker_state
 
-    device = resolve_device(args.device)
-    check_single_device(args.mesh, device, "train_lfnet")
+    device = initialize_multihost(device=args.device)
+    mesh = training_mesh(args.mesh, "train_lfnet")
+    leader = world_rank() == 0
     cfg = FrontendConfig(
         kind="lfnet", input_size=args.size, top_k=args.top_k,
         desc_dim=args.desc_dim, net_channel=args.net_channel,
@@ -164,7 +194,10 @@ def main(argv=None):
         print(f"[train_lfnet] resumed at step {start_step}", file=sys.stderr)
     # optax's schedule reads the restored count: step i takes the rate at i
     scheduler = cosine_schedule(optimizer, max(args.steps, 1), start_step) if args.lr_decay == "cosine" else None
-    step = make_lfnet_train_step(model, optimizer, scheduler)
+    if mesh is None:
+        step = make_lfnet_train_step(model, optimizer, scheduler)
+    else:
+        step = make_sharded_lfnet_train_step(model, optimizer, mesh, scheduler=scheduler)
 
     print(f"[train_lfnet] rendering {max(args.num_seqs, args.batch)} {args.world} worlds...", file=sys.stderr)
     pool = build_batches(args.size, args.batch, args.num_seqs, args.seed,
@@ -180,7 +213,7 @@ def main(argv=None):
     metrics = {}
     for i in range(start_step, args.steps):
         metrics = step(pool[i % len(pool)])
-        if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
+        if leader and ((i + 1) % args.log_every == 0 or i + 1 == args.steps):
             m = {k: float(v) for k, v in metrics.items()}  # reads the device: at log steps only
             m.update(step=i + 1, sec=round(time.perf_counter() - t0, 2))
             print(json.dumps(m), flush=True)

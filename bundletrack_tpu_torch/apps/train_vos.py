@@ -6,13 +6,16 @@ transductive-vos.pytorch/main.py:57-135).  The same objective
 or with --rollout the inference recurrence) on rendered clips with mask
 labels, Adam, and `.npz` checkpoints: `params/` (the state dict) and
 `meta.json` in --ckpt-dir, which `apps/run_vos --checkpoint <dir>/params`
-loads.  Runs on the card unless --device says otherwise; a mesh over more
-than one device is not ported.
+loads.  Runs on the card unless --device says otherwise.  Under torchrun,
+--mesh "auto" (or a dp size equal to the world) trains data-parallel over
+the ranks, the reference's DDP: each rank takes its block of every global
+batch; rank 0 logs and writes the checkpoint.
 
 Usage:
     python -m bundletrack_tpu_torch.apps.train_vos --steps 200 --size 96 \
         --batch 4 --clip-len 4 --ckpt-dir ckpt/vos [--rollout] \
         [--init-npz checkpoints/vos_params.npz --width 96] [--device cpu]
+    torchrun --nproc-per-node 2 -m bundletrack_tpu_torch.apps.train_vos --mesh 2 ...
 """
 
 from __future__ import annotations
@@ -96,19 +99,22 @@ def main(argv=None):
     parser.add_argument("--ckpt-dir", default="")
     parser.add_argument("--ckpt-every", type=int, default=100)
     parser.add_argument("--log-every", type=int, default=10)
-    parser.add_argument("--mesh", default="auto", help='"auto" or "none" (one device); a dp size is not ported')
+    parser.add_argument("--mesh", default="auto",
+                        help='over torchrun ranks: "auto", a dp size or "none"; one rank trains on one device')
     parser.add_argument("--device", default=None, help="torch device; the CUDA card when not given")
     args = parser.parse_args(argv)
 
     import torch
 
-    from bundletrack_tpu_torch.apps.train_lfnet import check_single_device, save_checkpoint
-    from bundletrack_tpu_torch.device import resolve_device
+    from bundletrack_tpu_torch.apps.train_lfnet import save_checkpoint, training_mesh
     from bundletrack_tpu_torch.models import VOSTrainBatch, make_adam, make_vos_train_step
     from bundletrack_tpu_torch.models.vos import init_vos, load_vos_npz
+    from bundletrack_tpu_torch.parallel.distributed import initialize_multihost, world_rank
+    from bundletrack_tpu_torch.parallel.fleet import make_sharded_vos_train_step
 
-    device = resolve_device(args.device)
-    check_single_device(args.mesh, device, "train_vos")
+    device = initialize_multihost(device=args.device)
+    mesh = training_mesh(args.mesh, "train_vos", axes=("data",))
+    leader = world_rank() == 0
     H = W = args.size
     model, _ = init_vos(width=args.width, seed=args.seed)
     if args.init_npz:
@@ -118,7 +124,10 @@ def main(argv=None):
         print(f"[train_vos] warm start from {args.init_npz}", file=sys.stderr)
     model.to(device)
     optimizer = make_adam(model.parameters(), args.lr)
-    step = make_vos_train_step(model, optimizer, (H, W), rollout=args.rollout)
+    if mesh is None:
+        step = make_vos_train_step(model, optimizer, (H, W), rollout=args.rollout)
+    else:
+        step = make_sharded_vos_train_step(model, optimizer, mesh, (H, W), rollout=args.rollout)
 
     print(f"[train_vos] rendering {args.num_seqs} {args.world} sequences...", file=sys.stderr)
     pool = build_clips(args.size, args.batch, args.clip_len, args.num_seqs, args.seed, args.world,
@@ -134,7 +143,7 @@ def main(argv=None):
     metrics = {}
     for i in range(args.steps):
         metrics = step(pool[i % len(pool)])
-        if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
+        if leader and ((i + 1) % args.log_every == 0 or i + 1 == args.steps):
             m = {k: float(v) for k, v in metrics.items()}  # reads the device: at log steps only
             m.update(step=i + 1, sec=round(time.perf_counter() - t0, 2))
             print(json.dumps(m), flush=True)

@@ -69,7 +69,7 @@ class BundleConfig:
     use_verification: bool = False
     verify_dist_thresh: float = 0.02
     verify_percent_thresh: float = 0.05
-    ba_mesh_axis: str = ""  # multi-device pair sharding; not ported yet (ROADMAP Queue 1, item 8)
+    ba_mesh_axis: str = ""  # mesh axis that shards the BA pairs: Tracker(mesh=...), make_fleet_step(mesh=...)
 
 
 @_frozen

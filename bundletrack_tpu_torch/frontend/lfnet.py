@@ -16,6 +16,16 @@ What follows the Flax module exactly, because the checkpoint depends on it:
   in f32, and the orientation conv in f32;
 - the descriptor flattens its [C, 4, 4] maps, while Flax flattened [4, 4, C]:
   the carry-over reorders fc1's input rows to match.
+
+Tensor parallelism (the JAX package's "model" mesh axis, parallel/fleet.py)
+splits the descriptor MLP over a process group: fc1 is column-parallel
+(each rank holds 512 / n of its outputs, with their bias and fc1_norm's
+scale and bias), fc2 row-parallel (the matching 512 / n inputs; partial
+products summed, the bias added once).  fc1_norm is GroupNorm(1) over all
+512 features, so its mean and mean square are summed over the group; a
+per-shard norm would compute another function.  `shard_lfnet_state_dict`
+and `gather_lfnet_state_dict` cut a full state dict to one rank's shard
+and make it whole again.
 """
 
 from __future__ import annotations
@@ -39,6 +49,13 @@ from bundletrack_tpu_torch.frontend.detector_ops import (
     transformer_crop,
 )
 from bundletrack_tpu_torch.frontend.interface import FrontendOutput
+from bundletrack_tpu_torch.ops.collectives import (
+    all_gather_cat,
+    copy_to_group,
+    group_size,
+    reduce_from_group,
+    sum_over_group,
+)
 from bundletrack_tpu_torch.ops.numerics import clip
 from bundletrack_tpu_torch.ops.resize import resize_bilinear
 from bundletrack_tpu_torch.utils import params_io
@@ -157,6 +174,7 @@ class SimpleDesc(nn.Module):
         self.fc1 = Dense(cin * side * side, 512, dtype=dtype)
         self.fc1_norm = _make_norm(norm, 512)
         self.fc2 = Dense(512, out_dim, dtype=dtype)
+        self.model_group = None  # tensor parallelism over this group: `shard_lfnet_`
 
     def forward(self, patches):  # [N, 1, P, P]
         x = patches
@@ -164,9 +182,30 @@ class SimpleDesc(nn.Module):
             x = getattr(self, f"conv{i + 1}")(x)
             x = F.relu(getattr(self, f"norm{i + 1}")(x))
         x = x.reshape(x.shape[0], -1)  # (c, h, w) order: fc1's rows were reordered to it
-        x = F.relu(self.fc1_norm(self.fc1(x)))
-        x = self.fc2(x).to(torch.float32)
+        if self.model_group is None:
+            x = F.relu(self.fc1_norm(self.fc1(x)))
+            x = self.fc2(x)
+        else:
+            x = self._mlp_tensor_parallel(x, self.model_group)
+        x = x.to(torch.float32)
         return x / clip(torch.linalg.vector_norm(x, dim=-1, keepdim=True), 1e-6)
+
+    def _mlp_tensor_parallel(self, x, group):
+        """fc1 -> fc1_norm -> relu -> fc2 with this rank's shards (module docstring)."""
+        h = self.fc1(copy_to_group(x, group))  # [N, 512 / n]
+        norm = self.fc1_norm
+        if isinstance(norm, GroupNorm):  # GroupNorm(1): statistics over all 512 features
+            h = h.to(torch.float32)
+            stats = sum_over_group(torch.stack([h.sum(-1), (h * h).sum(-1)]), group)
+            n = torch.tensor(float(h.shape[-1] * group_size(group)))
+            mu, mu2 = (stats / n)[:, :, None]
+            var = clip(mu2 - mu * mu, 0.0)
+            h = (h - mu) * (torch.rsqrt(var + norm.eps) * norm.scale) + norm.bias
+        else:  # per-feature: the shard's own rows
+            h = norm(h)
+        h = F.relu(h).to(self.fc2.dtype)
+        y = reduce_from_group(F.linear(h, self.fc2.weight.to(self.fc2.dtype)), group)
+        return y + self.fc2.bias.to(self.fc2.dtype)
 
 
 class LFNet(nn.Module):
@@ -270,6 +309,53 @@ class LFNetApply(nn.Module):
         if single:
             out = FrontendOutput(*(t[0] for t in out))
         return out
+
+
+# the tensor-parallel split: parameter -> the dimension cut over the "model" group
+TP_SHARD_DIMS = {"descriptor.fc1.weight": 0, "descriptor.fc1.bias": 0, "descriptor.fc2.weight": 1}
+TP_NORM_PREFIX = "descriptor.fc1_norm."  # every fc1_norm parameter: dimension 0
+
+
+def tp_shard_dim(name: str):
+    """The dimension a parameter is cut along under tensor parallelism, or
+    None for a replicated one."""
+    return 0 if name.startswith(TP_NORM_PREFIX) else TP_SHARD_DIMS.get(name)
+
+
+def shard_lfnet_state_dict(sd, rank: int, size: int) -> dict:
+    """The shard of a full LF-Net state dict that model rank `rank` of
+    `size` holds: fc1's outputs (weight rows, bias, fc1_norm) and fc2's
+    inputs cut into `size` contiguous blocks; the rest as it is."""
+    out = {}
+    for name, t in sd.items():
+        d = tp_shard_dim(name)
+        if d is not None:
+            if t.shape[d] % size:
+                raise ValueError(f"{name}: {t.shape[d]} features do not split over {size} model ranks")
+            t = t.chunk(size, dim=d)[rank].clone()
+        out[name] = t
+    return out
+
+
+def gather_lfnet_state_dict(sd, group) -> dict:
+    """The inverse of `shard_lfnet_state_dict` over the model group: every
+    rank of the group gets the full state dict (a collective)."""
+    return {name: t if tp_shard_dim(name) is None else all_gather_cat(t, group, dim=tp_shard_dim(name))
+            for name, t in sd.items()}
+
+
+def shard_lfnet_(model: "LFNet", group) -> None:
+    """Cut the model's parameters, in place, to this rank's shard over the
+    model group and switch the descriptor to the tensor-parallel forward.
+    The Parameter objects stay, so an optimiser built on them keeps them."""
+    rank = torch.distributed.get_rank(group)
+    size = group_size(group)
+    shards = shard_lfnet_state_dict(
+        {n: p.data for n, p in model.named_parameters() if tp_shard_dim(n) is not None}, rank, size)
+    for name, p in model.named_parameters():
+        if name in shards:
+            p.data = shards[name]
+    model.descriptor.model_group = group
 
 
 def make_lfnet_apply(cfg: FrontendConfig, params) -> LFNetApply:

@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from bundletrack_tpu_torch.ops.collectives import all_reduce
+
 
 def cosine_lr(step: int, decay_steps: int, alpha: float = 0.1) -> float:
     """The factor of optax.cosine_decay_schedule(lr, decay_steps, alpha) at
@@ -51,20 +53,36 @@ def cosine_schedule(optimizer, decay_steps: int, start_step: int = 0):
     return torch.optim.lr_scheduler.LambdaLR(optimizer, lambda i: cosine_lr(start_step + i, decay_steps))
 
 
-def train_step(loss_fn, optimizer, scheduler=None):
+def train_step(loss_fn, optimizer, scheduler=None, data_group=None):
     """step(*args) -> metrics: one optimiser update on loss_fn(*args) ->
     (loss, metrics).  The metrics, "loss" among them, are detached 0-dim
-    tensors on the loss's device: the step reads nothing back to the host."""
+    tensors on the loss's device: the step reads nothing back to the host.
+
+    With `data_group` (data parallelism), loss_fn returns this rank's share
+    of the global loss: the gradients are summed over the group (one
+    all-reduce of them all, not a mean), and "loss" is the sum of the
+    shares; the other metrics are loss_fn's, already global."""
 
     def step(*args):
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(*args)
         loss.backward()
+        if data_group is not None:
+            _sum_gradients(optimizer, data_group)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
+        metrics["loss"] = all_reduce(loss.detach(), data_group)
         return metrics
 
     return step
+
+
+def _sum_gradients(optimizer, group) -> None:
+    """Every parameter's gradient summed over the group, in one all-reduce.
+    Every rank has a gradient for the same parameters (one program)."""
+    grads = [p.grad for g in optimizer.param_groups for p in g["params"] if p.grad is not None]
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+    for g, part in zip(grads, torch.split(flat, [g.numel() for g in grads])):
+        g.copy_(part.view_as(g))

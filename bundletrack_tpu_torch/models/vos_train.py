@@ -7,6 +7,12 @@ attention used at inference, and a class-balanced cross-entropy is taken
 against the ground truth.  The JAX step vmaps over the batch and scans over
 the rollout; here both are Python loops over the same maths, the rollout's
 label buffer rebuilt out of place so that gradients run through it all.
+
+Data parallelism (`data_group`, the reference's DDP): each rank holds a
+block of the clips and returns its share of the GLOBAL loss, as the JAX
+package's sharded step computes it: the class counts that balance the
+cross-entropy are summed over the group, and so are the sums behind the
+logged ce, acc and IoU.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch.nn.functional as F
 
 from bundletrack_tpu_torch.models.optim import train_step
 from bundletrack_tpu_torch.models.vos import VOSNet, _nearest_index, propagate_labels, spatial_weight
+from bundletrack_tpu_torch.ops.collectives import all_reduce, group_size
 from bundletrack_tpu_torch.ops.numerics import clip, flush_denormals
 
 
@@ -57,28 +64,38 @@ def _features(model: VOSNet, clips: torch.Tensor) -> torch.Tensor:
     return feats.reshape(B, T, *feats.shape[1:])
 
 
-def _balanced_ce(pred: torch.Tensor, tgt: torch.Tensor):
+def _balanced_ce(pred: torch.Tensor, tgt: torch.Tensor, group=None):
     """(class-balanced CE sum, per-cell CE) of soft predictions [..., L]
     against one-hot targets: object cells weigh as much in total as
-    background cells (the object covers ~10 % of cells)."""
+    background cells (the object covers ~10 % of cells).  With `group`,
+    the class counts are the group's: the sum is this rank's share."""
     ce = -torch.sum(tgt * torch.log(clip(pred, 1e-8, 1.0)), dim=-1)
     is_obj = tgt[..., 1:].sum(-1)
-    n_obj = clip(torch.sum(is_obj), 1.0)
-    n_bg = clip(torch.sum(1.0 - is_obj), 1.0)
+    n_obj = clip(all_reduce(torch.sum(is_obj), group), 1.0)
+    n_bg = clip(all_reduce(torch.sum(1.0 - is_obj), group), 1.0)
     half = torch.tensor(0.5)  # tensor / tensor: a true division, as XLA's
     wt = is_obj * (half / n_obj) + (1.0 - is_obj) * (half / n_bg)
     return torch.sum(ce * wt), ce
 
 
-def _iou(pred_obj: torch.Tensor, tgt_obj: torch.Tensor) -> torch.Tensor:
-    return torch.sum(pred_obj & tgt_obj) / torch.clamp(torch.sum(pred_obj | tgt_obj), min=1)
+def _iou(pred_obj: torch.Tensor, tgt_obj: torch.Tensor, group=None) -> torch.Tensor:
+    inter, union = all_reduce(torch.stack([torch.sum(pred_obj & tgt_obj), torch.sum(pred_obj | tgt_obj)]), group)
+    return inter / torch.clamp(union, min=1)
+
+
+def _mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean over the group's cells (equal blocks on every rank)."""
+    if group is None:
+        return torch.mean(x)
+    return all_reduce(torch.sum(x), group) / (x.numel() * group_size(group))
 
 
 def vos_loss(model: VOSNet, batch: VOSTrainBatch, w_sigma1, w_sigma2, num_labels: int = 2,
-             temperature: float = 0.05, dense_num: int = 4):
+             temperature: float = 0.05, dense_num: int = 4, data_group=None):
     """(loss, {"ce", "bal_ce", "acc", "iou"}): frame T-1 of each clip
     predicted from the ground-truth labels of frames 0..T-2; the most
-    recent `dense_num` references take the sigma1 prior, older ones sigma2."""
+    recent `dense_num` references take the sigma1 prior, older ones sigma2.
+    With `data_group`, the loss is this rank's share, the metrics global."""
     B, T = batch.clips.shape[:2]
     feats = _features(model, batch.clips)
     h, w = feats.shape[-2:]
@@ -94,20 +111,22 @@ def vos_loss(model: VOSNet, batch: VOSTrainBatch, w_sigma1, w_sigma2, num_labels
         for b in range(B)
     ]).permute(0, 2, 3, 1)  # [B, h, w, L]
     tgt = labels_lo[:, R]
-    loss, ce = _balanced_ce(pred, tgt)
-    acc = torch.mean((torch.argmax(pred, -1) == torch.argmax(tgt, -1)).to(torch.float32))
+    loss, ce = _balanced_ce(pred, tgt, data_group)
+    acc = _mean((torch.argmax(pred, -1) == torch.argmax(tgt, -1)).to(torch.float32), data_group)
     # object-cell IoU of the hard prediction: the metric that moves
-    iou = _iou(torch.argmax(pred, -1) > 0, torch.argmax(tgt, -1) > 0)
-    return loss, {"ce": torch.mean(ce), "bal_ce": loss, "acc": acc, "iou": iou}
+    iou = _iou(torch.argmax(pred, -1) > 0, torch.argmax(tgt, -1) > 0, data_group)
+    return loss, {"ce": _mean(ce.detach(), data_group), "bal_ce": all_reduce(loss.detach(), data_group),
+                  "acc": acc, "iou": iou}
 
 
 def vos_rollout_loss(model: VOSNet, batch: VOSTrainBatch, w_sigma1, w_sigma2, num_labels: int = 2,
-                     temperature: float = 0.05, dense_num: int = 4):
+                     temperature: float = 0.05, dense_num: int = 4, data_group=None):
     """(loss, {"ce", "bal_ce", "iou", "iou_last"}): the inference recurrence.
     Frame 0 keeps its ground-truth label; frames 1..T-1 are predicted in
     sequence, each prediction becoming a (soft, possibly wrong) reference
     of the next, with a class-balanced CE at every step.  `iou_last` is
-    the IoU of the last step, the drift-sensitive number."""
+    the IoU of the last step, the drift-sensitive number.  `data_group` as
+    in vos_loss."""
     B, T = batch.clips.shape[:2]
     feats = _features(model, batch.clips)
     h, w = feats.shape[-2:]
@@ -133,23 +152,26 @@ def vos_rollout_loss(model: VOSNet, batch: VOSTrainBatch, w_sigma1, w_sigma2, nu
         preds.append(torch.stack(seq))
     preds = torch.stack(preds).permute(0, 1, 3, 4, 2)  # [B, T-1, h, w, L]
     tgt = labels_gt[:, 1:]
-    loss, ce = _balanced_ce(preds, tgt)
+    loss, ce = _balanced_ce(preds, tgt, data_group)
     pred_obj = torch.argmax(preds, -1) > 0
     tgt_obj = torch.argmax(tgt, -1) > 0
-    return loss, {"ce": torch.mean(ce), "bal_ce": loss, "iou": _iou(pred_obj, tgt_obj),
-                  "iou_last": _iou(pred_obj[:, -1], tgt_obj[:, -1])}
+    return loss, {"ce": _mean(ce.detach(), data_group), "bal_ce": all_reduce(loss.detach(), data_group),
+                  "iou": _iou(pred_obj, tgt_obj, data_group),
+                  "iou_last": _iou(pred_obj[:, -1], tgt_obj[:, -1], data_group)}
 
 
 def make_vos_train_step(model: VOSNet, optimizer, image_hw, downscale: int = 8, sigma1: float = 8.0,
-                        sigma2: float = 21.0, num_labels: int = 2, rollout: bool = False):
+                        sigma2: float = 21.0, num_labels: int = 2, rollout: bool = False, data_group=None):
     """step(batch: VOSTrainBatch) -> metrics (the loss's, and "loss"): one
     update of `optimizer` on vos_loss, or vos_rollout_loss with `rollout`.
     The spatial priors are built once, on the model's device, their
-    denormals flushed as XLA reads them."""
+    denormals flushed as XLA reads them.  With `data_group` the batch is
+    this rank's block and the gradients are summed over the group."""
     H, W = image_hw
     h, w = H // downscale, W // downscale
     dev = next(model.parameters()).device
     w1 = flush_denormals(spatial_weight(h, w, sigma1)).to(dev)
     w2 = flush_denormals(spatial_weight(h, w, sigma2)).to(dev)
     loss_fn = vos_rollout_loss if rollout else vos_loss
-    return train_step(lambda batch: loss_fn(model, batch, w1, w2, num_labels), optimizer)
+    return train_step(lambda batch: loss_fn(model, batch, w1, w2, num_labels, data_group=data_group), optimizer,
+                      data_group=data_group)

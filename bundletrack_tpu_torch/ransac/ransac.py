@@ -19,7 +19,7 @@ f32 (see the package __init__ on TF32).
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -255,6 +255,30 @@ def ransac_pair(
         num_inliers=torch.where(valid, n_inl, torch.zeros_like(n_inl)),
         valid=valid,
     )
+
+
+def ransac_multi_pair(
+    pts_a: torch.Tensor,  # [P, M, 3]
+    pts_b: torch.Tensor,
+    normals_a: torch.Tensor,
+    normals_b: torch.Tensor,
+    match_valid: torch.Tensor,  # [P, M]
+    prior_ab: torch.Tensor,  # [P, 4, 4]
+    *,
+    generator: Optional[torch.Generator] = None,
+    phases: Optional[torch.Tensor] = None,  # [P, 3, n_rep]
+    num_trials: int = 2048,
+    **kw,
+) -> RansacResult:
+    """RANSAC across P frame pairs in one batched call (reference
+    runRansacMultiPairGPU; JAX `ransac_multi_pair`).  The phases of all P
+    pairs are drawn at once from `generator` unless given: the JAX function
+    splits its key into P keys first, so that a pair's draws do not depend
+    on how the pairs are later sharded, and so does this."""
+    if phases is None:
+        phases = draw_phases((pts_a.shape[0],), num_trials, pts_a.shape[-2], generator)
+    return ransac_pair(pts_a, pts_b, normals_a, normals_b, match_valid, prior_ab, phases=phases,
+                       num_trials=num_trials, **kw)
 
 
 def refine_pose_on_inliers(pts_a, pts_b, inliers) -> torch.Tensor:

@@ -10,6 +10,13 @@ free_mask=False keep their pose (gauge fixing).  Leading axes batch
 independent graphs: the fleet solves every stream's graph at once, with
 batched Cholesky factorizations of [S, 6K, 6K].  Without early stopping
 the loop runs num_iter_outer iterations and makes no device-to-host read.
+
+`group`: the process group of the mesh axis that shards the correspondence
+PAIRS (parallel/pair_sharded.py, the tracker with bundle.ba_mesh_axis).
+Each rank linearizes its own pairs, sparse and dense terms alike, and H, g
+and the cost are summed over the group once per GN iteration (the JAX
+package's psum); every rank then solves the same system, so the loop stays
+in lockstep.  The verification statistics are summed (counts) and maxed.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from bundletrack_tpu_torch.geometry.se3 import se3_update_left
+from bundletrack_tpu_torch.ops.collectives import MAX, all_reduce
 from bundletrack_tpu_torch.solver.dense_p2p import (
     CompactDense,
     DenseFrames,
@@ -84,10 +92,11 @@ def _dense_weighted(cfg) -> bool:
     return cfg.w_dense_depth > 0.0 or cfg.w_dense_color > 0.0
 
 
-def build_normal_equations(inputs: GraphInputs, cfg, p2p=None):
+def build_normal_equations(inputs: GraphInputs, cfg, p2p=None, group=None):
     """Assemble H/g/cost from the sparse and dense terms (one linearization);
     the dense term reads inputs.dense_compact (optimize_pose_graph compacts
-    inputs.dense into it once per solve)."""
+    inputs.dense into it once per solve).  With `group`, the rank's pairs'
+    blocks are summed over the group: one all-reduce of H, g and cost."""
     H, g, cost, _ = sparse_normal_equations(
         inputs.poses, inputs.corres, robust_delta=cfg.robust_delta, weight=cfg.w_sparse
     )
@@ -112,6 +121,12 @@ def build_normal_equations(inputs: GraphInputs, cfg, p2p=None):
             **kw,
         )
         H, g, cost = H + Hd, g + gd, cost + cd
+    if group is not None:
+        parts = (H, g, cost.to(H.dtype))
+        flat = all_reduce(torch.cat([t.reshape(*cost.shape, -1) for t in parts], dim=-1), group)
+        sizes = [t[(0,) * cost.dim()].numel() for t in parts]
+        H, g, c = (p.reshape(t.shape) for p, t in zip(torch.split(flat, sizes, dim=-1), parts))
+        cost = c.to(cost.dtype)
     return H, g, cost
 
 
@@ -122,7 +137,7 @@ def _check_backend(cfg) -> None:
         raise ValueError(f"bundle.solver_backend={cfg.solver_backend!r}: expected 'cholesky' or 'pcg'")
 
 
-def optimize_pose_graph(inputs: GraphInputs, cfg, p2p=None):
+def optimize_pose_graph(inputs: GraphInputs, cfg, p2p=None, group=None):
     """Run the robust-GN outer loop; returns (poses [..., K, 4, 4], info dict).
 
     cfg: BundleConfig (solver_backend "cholesky" or "pcg", anything else
@@ -137,6 +152,9 @@ def optimize_pose_graph(inputs: GraphInputs, cfg, p2p=None):
     still active, and the loop ends when none is: on the H100 that beat
     running all num_iter_outer iterations masked, without reads, at 1 and 8
     streams (PERF.md).  info["iterations"] counts each graph's updates.
+    `group`: the pair-sharding process group (module docstring); the early
+    stop then reads the max of every rank's flag, so all ranks leave the
+    loop together.
     """
     _check_backend(cfg)
     if inputs.dense_compact is None and inputs.dense is not None and _dense_weighted(cfg):
@@ -153,7 +171,7 @@ def optimize_pose_graph(inputs: GraphInputs, cfg, p2p=None):
     else:
         iterations = torch.full(batch, cfg.num_iter_outer, dtype=torch.int32, device=poses.device)
     for it in range(cfg.num_iter_outer):
-        H, g, step_cost = build_normal_equations(inputs._replace(poses=poses), cfg, p2p)
+        H, g, step_cost = build_normal_equations(inputs._replace(poses=poses), cfg, p2p, group)
         H, g = _apply_gauge(H, g, free)
         if cfg.solver_backend == "pcg":
             delta = solve_normal_equations_pcg(H, g, num_iters=cfg.num_iter_inner, lm_lambda=cfg.lm_lambda)
@@ -172,19 +190,20 @@ def optimize_pose_graph(inputs: GraphInputs, cfg, p2p=None):
         cost = torch.where(active, step_cost, cost)
         iterations = iterations + active.to(torch.int32)
         active = active & (torch.amax(torch.abs(delta), dim=(-2, -1)) >= cfg.early_stop_delta)
+        active = all_reduce(active, group, MAX)
         if it + 1 < cfg.num_iter_outer and not bool(active.any()):
             break  # device-to-host read, once per iteration
     info = {"final_cost": cost, "iterations": iterations}
-    info.update(verify_solution(poses, inputs, cfg))
+    info.update(verify_solution(poses, inputs, cfg, group))
     return poses, info
 
 
-def optimize_pose_graph_verified(inputs: GraphInputs, cfg, p2p=None):
+def optimize_pose_graph_verified(inputs: GraphInputs, cfg, p2p=None, group=None):
     """optimize_pose_graph + the useVerification reject path: when
     cfg.use_verification and the high-residual fraction reaches
     cfg.verify_percent_thresh, the input poses come back and `rejected` is
     True.  Returns (poses, rejected [...] bool tensor, info)."""
-    poses, info = optimize_pose_graph(inputs, cfg, p2p=p2p)
+    poses, info = optimize_pose_graph(inputs, cfg, p2p=p2p, group=group)
     rejected = torch.zeros(poses.shape[:-3], dtype=torch.bool, device=poses.device)
     if cfg.use_verification:
         rejected = info["high_residual_frac"] >= cfg.verify_percent_thresh
@@ -192,11 +211,12 @@ def optimize_pose_graph_verified(inputs: GraphInputs, cfg, p2p=None):
     return poses, rejected, info
 
 
-def verify_solution(poses, inputs: GraphInputs, cfg):
+def verify_solution(poses, inputs: GraphInputs, cfg, group=None):
     """Post-solve residual analysis (reference CUDASolverBundling
     computeMaxResidual and useVerification): the fraction of valid
     correspondences whose max-abs residual component exceeds
-    verify_dist_thresh, and the largest residual norm."""
+    verify_dist_thresh, and the largest residual norm.  With `group`, the
+    counts are summed and the maximum maxed over the group (psum / pmax)."""
     r, _, _ = sparse_residuals(poses, inputs.corres)
     e = torch.linalg.norm(r, dim=-1)
     e_inf = torch.amax(torch.abs(r), dim=-1) * cfg.w_sparse
@@ -204,5 +224,8 @@ def verify_solution(poses, inputs: GraphInputs, cfg):
     n = torch.sum(valid, dim=(-2, -1))
     n_high = torch.sum((e_inf > cfg.verify_dist_thresh) & valid, dim=(-2, -1))
     max_res = torch.amax(torch.where(valid, e, torch.zeros_like(e)), dim=(-2, -1))
+    if group is not None:
+        n, n_high = all_reduce(torch.stack([n, n_high]), group)
+        max_res = all_reduce(max_res, group, MAX)
     high = n_high / torch.clamp(n, min=1)
     return {"max_residual": max_res, "high_residual_frac": high}

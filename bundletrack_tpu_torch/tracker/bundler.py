@@ -26,6 +26,18 @@ whose branches are lax.cond / jnp.where, and selects under vmap.  Here:
 So a tracked frame makes 2 device-to-host reads whatever S is (plus one per
 GN iteration with early stopping); the first frame makes none.  The BA
 matcher runs once per frame for all S*P pairs.
+
+With `mesh` and `pair_axis` the BA pair work is sharded over that mesh
+axis's process group (the JAX step's shard_map over the pair axis): each
+rank matches, propagates, RANSACs and linearizes its contiguous block of
+the P pairs (phases drawn for all P first, then cut), the new frame's edge
+count is summed over the group, H and g are summed once per GN iteration,
+and the matches and verified edges are all-gathered back to [S, P, M] in
+pair order for the landmark update.  Every branch the host takes must be
+the same on every rank or a collective would wait forever, so each reads a
+value that came through a collective: `fail` and `admit` are group rank
+0's (broadcast), the solve's run flags read the summed edge count, the
+early stop the max of every rank's flag.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ from bundletrack_tpu_torch.matching.pairwise import (
     match_pairs_batched,
     merge_matches,
 )
+from bundletrack_tpu_torch.ops.collectives import all_gather_cat, all_reduce, broadcast_from_first
 from bundletrack_tpu_torch.ops.depth import process_depth
 from bundletrack_tpu_torch.ops.masks import preprocess_mask
 from bundletrack_tpu_torch.ops.pointcloud import depth_to_cloud_and_normals
@@ -185,9 +198,10 @@ def _set_prev(state: TrackerState, feats: FrameFeatures, pose, keep=None) -> Tra
     )
 
 
-def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
+def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None, mesh=None,
+                     pair_axis: Optional[str] = None):
     """Build the single-stream step for images of size H x W: the S = 1
-    view of `make_batched_track_frame`.
+    view of `make_batched_track_frame` (`mesh`, `pair_axis` as there).
 
     step(state, obs, init_pose, phases=None) -> (state, TrackOutput).
     `phases` = (neighbour [3, n_rep], pairs [P, 3, n_rep]) RANSAC phases;
@@ -197,7 +211,7 @@ def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
     one [S, side, side, 1] stack, and its descriptors are
     cfg.frontend.desc_dim wide.
     """
-    batched = make_batched_track_frame(cfg, H, W, lfnet_apply)
+    batched = make_batched_track_frame(cfg, H, W, lfnet_apply, mesh, pair_axis)
 
     def step(state: TrackerState, obs: FrameObservation, init_pose: torch.Tensor,
              phases: Optional[tuple] = None):
@@ -210,7 +224,8 @@ def make_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
     return step
 
 
-def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None):
+def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=None, mesh=None,
+                             pair_axis: Optional[str] = None):
     """Build the step over S streams for images of size H x W.
 
     step(state, obs, init_pose, phases=None) -> (state, TrackOutput), with a
@@ -219,6 +234,11 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
     [S, 4, 4] and of the outputs.  `phases` = (neighbour [S, 3, n_rep],
     pairs [S, P, 3, n_rep]); when None, each stream draws its own from its
     generator state.rng[s], in the order one stream draws them.
+
+    `mesh` (a DeviceMesh) with `pair_axis` naming one of its axes shards the
+    BA pairs over that axis (module docstring); every rank passes the same
+    state, observations and phases, and gets the same results.  P must
+    divide by the axis size (ValueError).
     """
     if cfg.frontend.kind == "classical" and cfg.frontend.desc_dim != 256:
         raise ValueError("the classical frontend makes 256-d descriptors (16x16 patches)")
@@ -238,16 +258,29 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
     )
     # pairs whose later frame is the new one: their verified edges feed the landmarks
     new_pairs = [p for p in range(P_PAIRS) if pair_j_np[p] == K_BA - 1]
+    group = None
+    lo, hi = 0, P_PAIRS  # this rank's block of the pairs
+    if mesh is not None and pair_axis is not None:
+        n_shard = mesh.size(mesh.mesh_dim_names.index(pair_axis))
+        if P_PAIRS % n_shard:
+            raise ValueError(f"P={P_PAIRS} BA pairs (max_ba_frames={K_BA}) must divide "
+                             f"mesh axis {pair_axis!r}={n_shard}")
+        group = mesh.get_group(pair_axis)
+        lo = mesh.get_local_rank(pair_axis) * (P_PAIRS // n_shard)
+        hi = lo + P_PAIRS // n_shard
+    P_LOCAL = hi - lo
 
     @functools.lru_cache(maxsize=None)
     def pairs_on(dev, S):
         """(pair_i, pair_j) [P] int64 for torch indexing, and the S*P pairs
         of the fleet's flattened [S*K] table, s*K + i, as int32 for the
         matcher kernel; uploaded once: an int32 index costs torch a cast
-        launch at every use, and the kernel takes int32."""
-        flat = [(np.arange(S)[:, None] * K_BA + a[None]).reshape(-1) for a in (pair_i_np, pair_j_np)]
+        launch at every use, and the kernel takes int32.  Sharded: this
+        rank's block of the pairs only."""
+        local = (pair_i_np[lo:hi], pair_j_np[lo:hi])
+        flat = [(np.arange(S)[:, None] * K_BA + a[None]).reshape(-1) for a in local]
         return (
-            *(torch.as_tensor(a.astype(np.int64), device=dev) for a in (pair_i_np, pair_j_np)),
+            *(torch.as_tensor(a.astype(np.int64), device=dev) for a in local),
             *(torch.as_tensor(a.astype(np.int32), device=dev) for a in flat),
         )
 
@@ -263,7 +296,7 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
             max_normal_deg=fc.max_normal_no_neighbor,
             max_matches=M,
         )
-        bm = MatchResult(*(t.reshape(S, P_PAIRS, M) for t in bm))
+        bm = MatchResult(*(t.reshape(S, P_LOCAL, M) for t in bm))
         if fc.map_points:
             # seed BA pairs with landmark-propagated matches (reference
             # findCorresByMapPoints); RANSAC filters the union
@@ -284,7 +317,7 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
         )
         edge_valid = bm.valid & mr.inliers
         touches_new = (pair_i == new_idx) | (pair_j == new_idx)
-        n_edges_new = torch.sum(edge_valid & touches_new[:, None], dim=(-2, -1))
+        n_edges_new = all_reduce(torch.sum(edge_valid & touches_new[:, None], dim=(-2, -1)), group)
         return bm, mpa, mpb, edge_valid, n_edges_new
 
     def first_frame(state, feats, fd, init_pose):
@@ -330,7 +363,7 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
             drawn = [(draw_phases((), rc.max_iter, M, g), draw_phases((P_PAIRS,), rc.max_iter, M, g))
                      for g in state.rng]
             phases = tuple(torch.stack(p) for p in zip(*drawn))
-        phases_nb, phases_pairs = phases
+        phases_nb, phases_pairs = phases[0], phases[1][:, lo:hi]
 
         # ---- neighbour matching + RANSAC + Procrustes init ----------------
         # constant-velocity prediction: pred_pose advances by the last
@@ -367,6 +400,7 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
             min=rc.min_match_after_ransac,
         )
         fail = fail | (state.need_reinit & (rr.num_inliers < required))
+        fail = broadcast_from_first(fail, group)
 
         # ---- BA subset + edges -------------------------------------------
         slots, sel_valid = select_ba_subset(state.kf_frame_id, state.kf_pose, pose_new, n_pool_sel)
@@ -411,7 +445,8 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
                 dense_compact=dense_compact,
                 K_lowres=K_low,
             )
-            ba_out_poses, ba_rejected, _ = optimize_pose_graph_verified(inputs, cfg.bundle, p2p=cfg.p2p)
+            ba_out_poses, ba_rejected, _ = optimize_pose_graph_verified(inputs, cfg.bundle, p2p=cfg.p2p,
+                                                                        group=group)
             if not all_run:
                 ba_out_poses = _stream_select(run, ba_out_poses, ba_pose)
                 ba_rejected = ba_rejected & run
@@ -436,6 +471,7 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
             st.kf_frame_id, st.kf_pose, pose_final, n_feat, status == STATUS_OK,
             cfg.keyframe.min_feat_num, cfg.keyframe.min_rot,
         )
+        admit = broadcast_from_first(admit, group)
         any_admit, all_admit = torch.stack([admit.any(), admit.all()]).tolist()  # read 2 of 2
         if any_admit:
             sel = None if all_admit else admit
@@ -446,6 +482,10 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
                 # absorb the new keyframe's verified BA edges into the landmark
                 # track table (reference updateFramePairMapPoints)
                 mp = st_new.mappoints
+                if group is not None:  # every pair's matches, in pair order
+                    packed = all_gather_cat(torch.stack([bm.idx_a, bm.idx_b, edge_valid.long()]), group, dim=2)
+                    bm = MatchResult(packed[0], packed[1], packed[2].bool())
+                    edge_valid = bm.valid
                 for p in new_pairs:
                     pool_pos = int(pair_i_np[p])
                     m = MatchResult(

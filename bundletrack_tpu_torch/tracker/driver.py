@@ -25,6 +25,17 @@ from bundletrack_tpu_torch.tracker.state import (
 )
 
 
+def ba_pair_axis(cfg: TrackerConfig, mesh) -> Optional[str]:
+    """The mesh axis that shards the BA pairs: cfg.bundle.ba_mesh_axis when
+    a mesh is given and the axis is set; ValueError when the mesh lacks it."""
+    axis = cfg.bundle.ba_mesh_axis or None
+    if mesh is None or axis is None:
+        return None
+    if axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"bundle.ba_mesh_axis={axis!r} not in mesh axes {mesh.mesh_dim_names}")
+    return axis
+
+
 def _upload(a: np.ndarray, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype == np.uint16:  # torch has few uint16 operations: widen on the host
@@ -37,16 +48,23 @@ class Tracker:
 
     `lfnet_apply` is the LF-Net frontend (frontend/lfnet.make_lfnet_apply)
     for cfg.frontend.kind "lfnet"; a module's weights move to the tracker's
-    device."""
+    device.
+
+    `mesh`: a DeviceMesh (parallel/distributed.make_mesh); with
+    cfg.bundle.ba_mesh_axis naming one of its axes, the BA pair work of
+    every frame is sharded over that axis (tracker/bundler.py), run by
+    every rank of the axis on the same frames, with the same `seed`; each
+    rank then holds the same poses.  Under a mesh the default device is the
+    rank's card (parallel/distributed.initialize_multihost sets it)."""
 
     def __init__(self, cfg: TrackerConfig, H: int, W: int, lfnet_apply=None, device=None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         self.cfg = cfg
         self.H, self.W = H, W
         self.device = resolve_device(device)
         if isinstance(lfnet_apply, torch.nn.Module):
             lfnet_apply = lfnet_apply.to(self.device)
-        self._step = make_track_frame(cfg, H, W, lfnet_apply)
+        self._step = make_track_frame(cfg, H, W, lfnet_apply, mesh=mesh, pair_axis=ba_pair_axis(cfg, mesh))
         self.state: TrackerState = init_tracker_state(cfg, H, W, self.device, seed)
         self.outputs = []
 

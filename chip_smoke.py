@@ -122,12 +122,33 @@
    run's weights on phase 6's frames (mean and min IoU bars
    VOS_TRAINED_*); plain and rollout steps timed at 96x96 and 256x256.
    The training phases launch the matcher 0 times.
-18. Prints one JSON line describing every kernel (the matcher's launches
-   summed over phases 3, 5, 7-14), the card's line, and as its last line
-   {"ok": true, "device": {...}}.
+18. Mesh phase: 2 ranks spawned with torch.multiprocessing (a file://
+   rendezvous, a collective timeout; the kernel was built in step 1, so
+   the ranks only load it) share the card over gloo, asked for
+   explicitly: the default tracker with bundle.ba_mesh_axis="pairs" on
+   phase 3's frames (60 of the 120 BA pairs per rank; both ranks' poses
+   equal, within MESH_TRACKER_ATOL of phase 3's poses and its bars; each
+   rank's matcher launches held to the plain version on its block); phase
+   9's 8 streams over "stream" (4 per rank) and 2 streams over stream=1 x
+   pairs=2, within the fleet's bars of phase 9's poses; LF-Net at
+   dp=2,tp=1 and dp=1,tp=2 (phase 16's batch) and VOS at dp=2 (phase 17's
+   clip), one step against the one-device step on the card (the training
+   bars).  Logs ms per tracked frame, the fleets' aggregate frames/s, ms
+   per training step and the GN all-reduce's ms per iteration: with two
+   host processes on one card, a measure of the collectives' cost, not of
+   scaling.  With two or more cards it runs again over NCCL, one rank per
+   card (world 2 or 4).  A rank's failure fails the run.
+19. Prints one JSON line describing every kernel (the matcher's launches
+   summed over phases 3, 5, 7-14 and 18, every rank), the card's line, and
+   as its last line {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and the last line is not
 printed.  Without a CUDA device, or without the package beside it, it fails.
+
+    python3 chip_smoke.py --mesh-only
+
+runs step 1, the one-rank tracker and fleet runs of phases 3 and 9 and
+phase 18 alone: the call to make on a machine with several cards.
 """
 
 from __future__ import annotations
@@ -138,10 +159,12 @@ import json
 import multiprocessing
 import os
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 
@@ -278,14 +301,15 @@ def timed_calls(cls, name: str):
 
 
 @contextlib.contextmanager
-def recorded_calls(owner, name: str):
-    """Records the result of every call of owner.name; yields the list."""
+def recorded_calls(owner, name: str, args: bool = False):
+    """Records the result of every call of owner.name, or with `args` its
+    (args, kwargs); yields the list."""
     original = getattr(owner, name)
     results = []
 
-    def record(*args, **kwargs):
-        out = original(*args, **kwargs)
-        results.append(out)
+    def record(*a, **kwargs):
+        out = original(*a, **kwargs)
+        results.append((a, kwargs) if args else out)
         return out
 
     setattr(owner, name, record)
@@ -913,9 +937,10 @@ def fleet_table_check(name: str, seqs, cfg, card: str, lfnet=None) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "diff_rows": diff_rows, "max_abs_err": err}
 
 
-def fleet_phase(seqs, cfg, card: str) -> int:
+def fleet_phase(seqs, cfg, card: str) -> tuple:
     """The fleet step on 8 differently seeded streams, its matcher on the
-    fleet's table, and the fleet's frames/s at S = 1, 4, 8."""
+    fleet's table, and the fleet's frames/s at S = 1, 4, 8.  Returns
+    (matcher launches, the phases, per-frame (poses, statuses))."""
     from bundletrack_tpu_torch import fleet_bench
     from bundletrack_tpu_torch.cardrun import H, W
     from bundletrack_tpu_torch.eval.metrics import adds_auc, pose_errors
@@ -954,7 +979,7 @@ def fleet_phase(seqs, cfg, card: str) -> int:
     seq = fleet_bench.render(H, W, fleet_bench.WARMUP + FLEET_RATE_FRAMES + fleet_bench.PROFILED + 1)
     for n in (1, 4, 8):
         fleet_bench.fleet_row(fleet_bench.bench_config(H, W), seq, n, FLEET_RATE_FRAMES, card)
-    return launches
+    return launches, phases, outs
 
 
 def differing_keypoints(batched, single) -> int:
@@ -1424,35 +1449,45 @@ def check_losses(name: str, lines, steps: int, trend: bool) -> list:
     return losses
 
 
+def one_step(make, batch_np, fields, dev: str) -> tuple:
+    """(loss, {name: gradient as a flat f64 CPU tensor}) of one training
+    step; `make(device)` -> (model, step)."""
+    import torch
+
+    model, step = make(dev)
+    metrics = step([torch.from_numpy(batch_np[k]).to(dev) for k in fields])
+    return float(metrics["loss"]), {n: p.grad.detach().double().cpu().flatten()
+                                    for n, p in model.named_parameters() if p.grad is not None}
+
+
 def card_vs_cpu_step(name: str, make, batch_np, fields, card: str) -> None:
     """One training step from the same weights on the same batch on the
     card and on the CPU: the relative loss difference and each gradient
     tensor's cosine.  `make(device)` -> (model, step)."""
-    import torch
+    hold_step(name, one_step(make, batch_np, fields, "cuda"), one_step(make, batch_np, fields, "cpu"),
+              "card vs CPU", card)
 
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        model, step = make(dev)
-        batch = [torch.from_numpy(batch_np[k]).to(dev) for k in fields]
-        metrics = step(batch)
-        runs[dev] = (float(metrics["loss"]), {n: p.grad.detach().double().cpu().flatten()
-                                              for n, p in model.named_parameters() if p.grad is not None})
-    (loss_card, g_card), (loss_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+
+def hold_step(name: str, got: tuple, ref: tuple, what: str, card: str) -> None:
+    """Holds one step's (loss, gradients) to a reference step's: the loss
+    within TRAIN_CARD_LOSS_RTOL, every gradient's cosine at least
+    TRAIN_CARD_GRAD_COS_MIN but the score convs' biases (logged)."""
+    (loss_card, g_card), (loss_cpu, g_cpu) = got, ref
     if set(g_card) != set(g_cpu):
-        raise AssertionError(f"{name}: card and CPU differ in which tensors get a gradient")
+        raise AssertionError(f"{name}: {what}: the steps differ in which tensors get a gradient")
     rel = abs(loss_card - loss_cpu) / max(abs(loss_cpu), 1e-12)
     cos, noise = {}, {}
     for n in g_cpu:
         c = float(g_card[n] @ g_cpu[n] / (g_card[n].norm() * g_cpu[n].norm() + 1e-300))
         (noise if n.startswith(TRAIN_NOISE_GRADS) and n.endswith(".bias") else cos)[n] = c
     worst = min(cos, key=cos.get)
-    log(f"{name}: card vs CPU, one step: loss {loss_card:.7g} / {loss_cpu:.7g} (relative {rel:.3e}, bar "
+    log(f"{name}: {what}, one step: loss {loss_card:.7g} / {loss_cpu:.7g} (relative {rel:.3e}, bar "
         f"{TRAIN_CARD_LOSS_RTOL}); gradient cosine min {cos[worst]:.6f} ({worst}), median "
         f"{float(np.median(list(cos.values()))):.6f} over {len(cos)} tensors (bar {TRAIN_CARD_GRAD_COS_MIN})"
         + (f"; zero-in-exact-arithmetic biases (not barred): "
            + ", ".join(f"{n} {c:.3f}" for n, c in noise.items()) if noise else "") + f" [{card}]")
     if rel > TRAIN_CARD_LOSS_RTOL or cos[worst] < TRAIN_CARD_GRAD_COS_MIN:
-        raise AssertionError(f"{name}: card and CPU steps disagree beyond the bars")
+        raise AssertionError(f"{name}: {what}: the steps disagree beyond the bars")
 
 
 def timed_steps(name: str, step, batch, card: str) -> tuple:
@@ -1506,10 +1541,11 @@ def compare_params(name: str, dir_a: str, dir_b: str, like) -> float:
     return worst
 
 
-def train_lfnet_phase(seq, card: str) -> None:
+def train_lfnet_phase(seq, card: str) -> dict:
     """The LF-Net trainer at the shipped widths: card against CPU for one
     step, the CLI at its defaults for 20 steps with a checkpoint at 10 and
-    a resume from it, and the serving shape timed."""
+    a resume from it, and the serving shape timed.  Returns the batch of
+    the card-vs-CPU step (numpy)."""
     import torch
 
     from bundletrack_tpu_torch.apps import train_lfnet
@@ -1571,13 +1607,15 @@ def train_lfnet_phase(seq, card: str) -> None:
                 f"{LFNET_SERVE_TOPK}, batch 8, f32)", step, batch, card)
     del model, step, batch
     torch.cuda.empty_cache()
+    return pool[0]
 
 
-def train_vos_phase(seq, card: str) -> None:
+def train_vos_phase(seq, card: str) -> dict:
     """The VOS trainer at the shipped width 96, warm-started from the
     shipped weights: card against CPU for one step, 20 plain and 20
     rollout steps of the CLI at its defaults, steps timed at two sizes,
-    and run_vos on the plain run's checkpoint."""
+    and run_vos on the plain run's checkpoint.  Returns the clip batch of
+    the card-vs-CPU step (numpy)."""
     import torch
 
     from bundletrack_tpu_torch.apps import run_vos, train_vos
@@ -1633,11 +1671,381 @@ def train_vos_phase(seq, card: str) -> None:
                         f"clip 4)", step, batch, card)
             del model, step
     torch.cuda.empty_cache()
+    return clip
+
+# ---- the mesh: ranks of torch.distributed ---------------------------------------
+
+MESH_SHARED_WORLD = 2  # ranks sharing the one card, over gloo
+MESH_TIMEOUT_S = 300.0  # a collective that waits longer fails its rank, and so the run
+MESH_TRACKER_ATOL = 1e-3  # max |pose entry| difference: JAX's bar, tests/test_pair_sharded.py:260
+MESH_2D_STREAMS, MESH_2D_FRAMES = 2, 4
+MESH_COLLECTIVE_FRAMES = 6  # frames of a fresh sharded tracker with the GN all-reduce timed
 
 
-def main() -> int:
+class MeshInputs(NamedTuple):
+    seq: object  # the main 20-frame sequence
+    tracker_poses: list  # the one-rank tracker's poses on it (tracker phase)
+    fleet_seqs: list
+    fleet_phases: list  # the fleet phase's RANSAC phases, per frame
+    fleet_outs: list  # the one-rank fleet's (poses [S,4,4], statuses [S]) per frame
+    lfnet_batch: dict  # the LF-Net card-vs-CPU batch (96x96, batch 8)
+    vos_clip: dict  # the VOS card-vs-CPU clip batch (96x96, batch 4, clip 4)
+
+
+def _timed_collectives(module):
+    """Replaces module.all_reduce with a copy that waits for every rank of
+    the group (a barrier) and synchronises the card before the call, and
+    synchronises after it: the collective's own time, without the wait for
+    the slowest rank.  Returns (the list of (numel, ms) it fills, undo)."""
+    import torch
+    import torch.distributed as dist
+
+    original, calls = module.all_reduce, []
+
+    def timed(t, group, *op):
+        torch.cuda.synchronize()
+        dist.barrier(group=group)
+        t0 = time.perf_counter()
+        out = original(t, group, *op)
+        torch.cuda.synchronize()
+        calls.append((t.numel(), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    module.all_reduce = timed
+    return calls, lambda: setattr(module, "all_reduce", original)
+
+
+def mesh_tracker(rank: int, world: int, seq) -> dict:
+    """The default tracker with its BA pairs sharded over "pairs" (120 /
+    world per rank): poses, statuses, frame ms, matcher launches, every
+    launch held to the plain version on this rank's block; then a fresh
+    tracker's GN all-reduces timed."""
     import torch
 
+    from bundletrack_tpu_torch.cardrun import H, W, timed_frames
+    from bundletrack_tpu_torch.config import BundleConfig, TrackerConfig
+    from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.matching import pairwise
+    from bundletrack_tpu_torch.parallel import make_mesh
+    from bundletrack_tpu_torch.solver import gauss_newton
+    from bundletrack_tpu_torch.tracker.driver import Tracker
+
+    cfg = TrackerConfig(bundle=BundleConfig(ba_mesh_axis="pairs"))
+    mesh = make_mesh({"pairs": world})
+    init_pose = np.linalg.inv(seq.ob_in_cam[0])
+    tracker = Tracker(cfg, H, W, mesh=mesh)
+    with recorded_calls(pairwise, "fused_mutual_match_pairs") as outs, \
+            recorded_calls(pairwise, "fused_mutual_match_pairs", args=True) as args:
+        km.launches = 0
+        run = list(timed_frames(tracker, seq, range(len(seq.gray)), init_pose))
+        launches = km.launches
+    per = P_PAIRS // world
+    want_i = np.triu_indices(K_BA, k=1)[0][rank * per:(rank + 1) * per]
+    max_err, report = 0.0, io.StringIO()
+    try:
+        with contextlib.redirect_stdout(report):  # a line per launch, printed only on a failure
+            for f, (got, (a, kw)) in enumerate(zip(outs, args)):
+                if not np.array_equal(a[4].cpu().numpy(), want_i):
+                    raise AssertionError(f"mesh rank {rank}: the matcher's pairs are not this rank's block")
+                ref = km.fused_mutual_match_pairs_reference(*a, **kw)
+                torch.cuda.synchronize()
+                max_err = max(max_err, check_kernel(f"mesh rank {rank} tracked frame {f + 1}", got, ref, a[:4],
+                                                    a[4], a[5], kw))
+    except AssertionError:
+        log(report.getvalue())
+        raise
+    differ = [line for line in report.getvalue().splitlines() if "mutual differs" in line]
+    log(f"mesh rank {rank}: {len(outs)} matcher launches held to the plain version on pairs "
+        f"{rank * per}..{(rank + 1) * per - 1}: max |dist diff| {max_err:.3e}, {len(differ)} mutual rows differ, "
+        "each a column near tie" + "".join("\n" + line for line in differ))
+    del outs, args
+    calls, undo = _timed_collectives(gauss_newton)
+    try:
+        fresh = Tracker(cfg, H, W, mesh=mesh)
+        list(timed_frames(fresh, seq, range(MESH_COLLECTIVE_FRAMES), init_pose))
+    finally:
+        undo()
+    ge = [ms for n, ms in calls if n > 1000]  # the H, g, cost all-reduce of each GN iteration
+    return {"poses": np.stack([o.ob_in_cam.cpu().numpy() for _, o, _ in run]),
+            "statuses": [int(o.status) for _, o, _ in run], "frame_ms": [ms for _, _, ms in run],
+            "launches": launches, "max_abs_err": max_err, "pairs": per,
+            "gn_allreduce_ms": float(np.median(ge)), "gn_allreduces_per_frame": len(ge) / (MESH_COLLECTIVE_FRAMES - 1),
+            "other_collectives_ms": float(np.median([ms for n, ms in calls if n <= 1000]))}
+
+
+def mesh_fleet(rank: int, world: int, fleet, phases, axis_sizes: dict, S: int, F: int) -> dict:
+    """S streams of the fleet phase over `axis_sizes`, each rank feeding and
+    stepping its block of the streams with the fleet phase's phases."""
+    import torch
+
+    from bundletrack_tpu_torch.cardrun import H, W
+    from bundletrack_tpu_torch.config import BundleConfig, TrackerConfig
+    from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.parallel import (
+        fleet_observation,
+        init_fleet_state,
+        local_stream_slice,
+        make_fleet_step,
+        make_mesh,
+    )
+
+    cfg = TrackerConfig(bundle=BundleConfig(ba_mesh_axis="pairs" if "pairs" in axis_sizes else ""))
+    mesh = make_mesh(axis_sizes)
+    mine = range(S)[local_stream_slice(S, mesh)]
+    rows = slice(mine.start, mine.stop)
+    step, state = make_fleet_step(cfg, H, W, mesh=mesh), init_fleet_state(cfg, H, W, S, mesh=mesh)
+    ip = torch.as_tensor(np.linalg.inv(fleet["ob_in_cam"][rows, 0]).astype(np.float32), device="cuda")
+    km.launches = 0
+    poses, statuses, frame_ms = [], [], []
+    for f in range(F):
+        obs = fleet_observation(*(fleet[k][rows, f] for k in ("gray", "depth", "mask")), fleet["K"][rows], "cuda")
+        ph = None if phases[f] is None else tuple(p[rows].cuda() for p in phases[f])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = step(state, obs, ip, ph)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        poses.append(out.ob_in_cam.cpu().numpy())
+        statuses.append(out.status.cpu().numpy())
+    return {"streams": (mine.start, mine.stop), "poses": np.stack(poses), "statuses": np.stack(statuses),
+            "frame_ms": frame_ms, "launches": km.launches}
+
+
+def mesh_train(rank: int, world: int, lfnet_batch: dict, vos_clip: dict) -> dict:
+    """One LF-Net step at dp=world,tp=1 and dp=1,tp=world, and one VOS step
+    at dp=world, on the global batches of the training phases; each then
+    timed.  Gradients made whole (rank 0 keeps them)."""
+    import torch
+
+    from bundletrack_tpu_torch.apps.run_vos import VOS_CKPT
+    from bundletrack_tpu_torch.cardrun import cuda_median_ms
+    from bundletrack_tpu_torch.config import FrontendConfig
+    from bundletrack_tpu_torch.frontend.lfnet import gather_lfnet_state_dict, init_lfnet
+    from bundletrack_tpu_torch.models import LFNetTrainBatch, VOSTrainBatch, make_adam
+    from bundletrack_tpu_torch.models.vos import load_vos_npz
+    from bundletrack_tpu_torch.parallel import make_mesh, make_sharded_lfnet_train_step, make_sharded_vos_train_step
+
+    def run(name, model, step, batch):
+        metrics = step(batch)
+        grads = {n: p.grad.detach() for n, p in model.named_parameters() if p.grad is not None}
+        group = getattr(getattr(model, "descriptor", None), "model_group", None)
+        if group is not None:
+            grads = gather_lfnet_state_dict(grads, group)
+        ms = cuda_median_ms(lambda: step(batch), runs=TRAIN_TIMED_STEPS, warmup=TRAIN_WARMUP_STEPS)
+        return name, (float(metrics["loss"]), {n: g.double().cpu().flatten() for n, g in grads.items()}
+                      if rank == 0 else None, ms)
+
+    out = {}
+    batch = LFNetTrainBatch(*(torch.from_numpy(lfnet_batch[k]).cuda() for k in LFNetTrainBatch._fields))
+    for dp, tp in ((world, 1), (1, world)):
+        model, _ = init_lfnet(FrontendConfig(kind="lfnet", input_size=96, top_k=128, bf16=False), seed=0)
+        model.cuda()
+        opt = make_adam(model.parameters(), 1e-3)
+        step = make_sharded_lfnet_train_step(model, opt, make_mesh({"data": dp, "model": tp}))
+        if tp > 1 and tuple(model.descriptor.fc1.weight.shape)[0] != 512 // tp:
+            raise AssertionError("mesh: fc1 is not split over the model axis")
+        name, res = run(f"train_lfnet dp={dp} tp={tp}", model, step, batch)
+        out[name] = res
+    model, _ = load_vos_npz(VOS_CKPT)
+    model.cuda()
+    step = make_sharded_vos_train_step(model, make_adam(model.parameters(), 1e-3), make_mesh({"data": world}),
+                                       (96, 96))
+    clip = VOSTrainBatch(*(torch.from_numpy(vos_clip[k]).cuda() for k in VOSTrainBatch._fields))
+    name, res = run(f"train_vos dp={world}", model, step, clip)
+    out[name] = res
+    return out
+
+
+def mesh_rank(rank: int, tmp: str, fleet_phases_cpu: list) -> None:
+    """One rank of the mesh phase: every job in turn, results to tmp."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    d = np.load(os.path.join(tmp, "inputs.npz"))
+    seq = types.SimpleNamespace(**{k: d["seq_" + k] for k in ("gray", "depth", "mask", "K", "ob_in_cam")})
+    fleet = {k: d["fleet_" + k] for k in ("gray", "depth", "mask", "K", "ob_in_cam")}
+    batches = [{k[len(p):]: d[k] for k in d.files if k.startswith(p)} for p in ("lfnet_", "vos_")]
+    out = {"tracker": mesh_tracker(rank, world, seq),
+           "fleet": mesh_fleet(rank, world, fleet, fleet_phases_cpu, {"stream": world}, FLEET_STREAMS, FLEET_FRAMES),
+           "fleet_2d": mesh_fleet(rank, world, fleet, [None if p is None else tuple(t[:MESH_2D_STREAMS] for t in p)
+                                                       for p in fleet_phases_cpu],
+                                  {"stream": 1, "pairs": world}, MESH_2D_STREAMS, MESH_2D_FRAMES),
+           "train": mesh_train(rank, world, *batches)}
+    out["launches"] = out["tracker"]["launches"] + out["fleet"]["launches"] + out["fleet_2d"]["launches"]
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def mesh_phase(inp: MeshInputs, backend: str, world: int, card: str, device=None) -> int:
+    """The tracker with its BA pairs sharded, the fleet over "stream", a 2-D
+    stream x pairs fleet and the dp x tp / dp training steps, on `world`
+    spawned ranks (file:// rendezvous): with gloo, ranks sharing one card;
+    with NCCL, one rank per card.  Held to the one-rank runs of the earlier
+    phases; returns the matcher launches of all ranks."""
+    import torch
+
+    from bundletrack_tpu_torch.apps.run_vos import VOS_CKPT
+    from bundletrack_tpu_torch.cardrun import cuda_median_ms
+    from bundletrack_tpu_torch.config import FrontendConfig
+    from bundletrack_tpu_torch.eval.metrics import adds_auc, pose_errors
+    from bundletrack_tpu_torch.frontend.lfnet import init_lfnet
+    from bundletrack_tpu_torch.models import LFNetTrainBatch, VOSTrainBatch, make_adam, make_lfnet_train_step
+    from bundletrack_tpu_torch.models import make_vos_train_step
+    from bundletrack_tpu_torch.models.vos import load_vos_npz
+    from bundletrack_tpu_torch.parallel.distributed import spawn_ranks
+
+    where = "sharing one card" if backend == "gloo" else "one per card"
+    tag = f"mesh[{world} ranks {where}, {backend}]"
+    if backend == "nccl":  # every card's name and power limit, not only the first's
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip().splitlines()
+        card = "; ".join(f"card {i}: {line}" for i, line in enumerate(smi))
+    log(f"{tag}: backend {backend!r} asked for explicitly (NCCL refuses two ranks on one card); "
+        f"rendezvous file://, collective timeout {MESH_TIMEOUT_S:.0f} s")
+
+    def make_lfnet(dev):
+        model, _ = init_lfnet(FrontendConfig(kind="lfnet", input_size=96, top_k=128, bf16=False), seed=0)
+        model.to(dev)
+        step = make_lfnet_train_step(model, make_adam(model.parameters(), 1e-3))
+        return model, lambda b: step(LFNetTrainBatch(*b))
+
+    def make_vos(dev):
+        model, _ = load_vos_npz(VOS_CKPT)
+        model.to(dev)
+        step = make_vos_train_step(model, make_adam(model.parameters(), 1e-3), (96, 96))
+        return model, lambda b: step(VOSTrainBatch(*b))
+
+    ref_lfnet = one_step(make_lfnet, inp.lfnet_batch, LFNetTrainBatch._fields, "cuda")
+    ref_vos = one_step(make_vos, inp.vos_clip, VOSTrainBatch._fields, "cuda")
+    one_device_ms = {}
+    for key, make, batch_np, fields in (("train_lfnet", make_lfnet, inp.lfnet_batch, LFNetTrainBatch._fields),
+                                        ("train_vos", make_vos, inp.vos_clip, VOSTrainBatch._fields)):
+        _, step = make("cuda")
+        batch = [torch.from_numpy(batch_np[k]).cuda() for k in fields]
+        one_device_ms[key] = cuda_median_ms(lambda: step(batch), runs=TRAIN_TIMED_STEPS, warmup=TRAIN_WARMUP_STEPS)
+    n_fl = FLEET_FRAMES
+    arrays = {"seq_" + k: np.asarray(getattr(inp.seq, k)) for k in ("gray", "depth", "mask", "K", "ob_in_cam")}
+    arrays.update({"fleet_" + k: np.stack([np.asarray(getattr(q, k))[:n_fl] if k != "K" else q.K
+                                           for q in inp.fleet_seqs]) for k in ("gray", "depth", "mask", "K",
+                                                                               "ob_in_cam")})
+    arrays.update({"lfnet_" + k: v for k, v in inp.lfnet_batch.items()})
+    arrays.update({"vos_" + k: v for k, v in inp.vos_clip.items()})
+    phases_cpu = [None if p is None else tuple(t.cpu() for t in p) for p in inp.fleet_phases]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        np.savez(os.path.join(tmp, "inputs.npz"), **arrays)
+        t0 = time.perf_counter()
+        spawn_ranks(mesh_rank, world, (tmp, phases_cpu), backend=backend, device=device, timeout_s=MESH_TIMEOUT_S)
+        log(f"{tag}: the ranks ran in {time.perf_counter() - t0:.1f} s (spawn, CUDA init and kernel load included)")
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+
+    # tracker: both ranks equal; the one-rank tracker's statuses, poses within 1e-3 and its bars
+    tr = [r["tracker"] for r in res]
+    same = max(float(np.abs(t["poses"] - tr[0]["poses"]).max()) for t in tr)
+    vs_one = float(np.abs(tr[0]["poses"] - np.stack(inp.tracker_poses)).max())
+    errs = [pose_errors(p, inp.seq.ob_in_cam[f]) for f, p in enumerate(tr[0]["poses"])]
+    rot, trans = max(e[0] for e in errs), max(e[1] for e in errs)
+    model_pts = (np.random.RandomState(0).rand(500, 3).astype(np.float32) - 0.5) * 0.2
+    auc = adds_auc(list(tr[0]["poses"]), list(inp.seq.ob_in_cam), model_pts)
+    med = max(float(np.median(t["frame_ms"][3:])) for t in tr)
+    log(f"{tag}: tracker, BA pairs sharded over 'pairs' ({tr[0]['pairs']} of {P_PAIRS} per rank): statuses "
+        f"{tr[0]['statuses']}; the ranks' poses differ by max {same:.3e}; against the one-rank tracker max |pose "
+        f"entry diff| {vs_one:.3e} (bar {MESH_TRACKER_ATOL}); worst rotation {rot:.4f} deg, translation "
+        f"{trans * 1e3:.3f} mm, ADD-S AUC {auc:.2f}; median frame {med:.2f} ms (slowest rank, frames 3..); "
+        f"matcher launches per rank {[t['launches'] for t in tr]}, each held to the plain version on its block "
+        f"(max |dist diff| {max(t['max_abs_err'] for t in tr):.3e}); GN all-reduce of H, g, cost "
+        f"{tr[0]['gn_allreduce_ms']:.3f} ms per iteration ({tr[0]['gn_allreduces_per_frame']:.1f} per frame), "
+        f"the other collectives {tr[0]['other_collectives_ms']:.3f} ms each (after a barrier: the collective "
+        f"alone) [{card}; {where}]")
+    if any(t["statuses"] != tr[0]["statuses"] for t in tr) or same != 0.0:
+        raise AssertionError(f"{tag}: the ranks' tracker results differ")
+    if any(tr[0]["statuses"]) or vs_one > MESH_TRACKER_ATOL:
+        raise AssertionError(f"{tag}: the sharded tracker differs from the one-rank tracker")
+    if rot >= 1.0 or trans >= 0.005 or auc <= 95.0:
+        raise AssertionError(f"{tag}: the sharded tracker misses the tracker's pose bars")
+    if any(t["launches"] != len(inp.seq.gray) - 1 for t in tr):
+        raise AssertionError(f"{tag}: matcher launches per rank != tracked frames")
+
+    # fleets: the ranks' blocks in rank order against the one-rank fleet
+    for key, S, F in (("fleet", FLEET_STREAMS, FLEET_FRAMES), ("fleet_2d", MESH_2D_STREAMS, MESH_2D_FRAMES)):
+        blocks = {r[key]["streams"]: r[key] for r in res}
+        worst = (0.0, 0.0)
+        for f in range(F):
+            poses = np.concatenate([b["poses"][f] for _, b in sorted(blocks.items())])
+            statuses = np.concatenate([b["statuses"][f] for _, b in sorted(blocks.items())])
+            ref_poses, ref_statuses = inp.fleet_outs[f]
+            if not np.array_equal(statuses, ref_statuses[:S]):
+                raise AssertionError(f"{tag}: {key}: statuses differ from the one-rank fleet at frame {f}")
+            for s in range(S):
+                e = pose_errors(poses[s], ref_poses[s])
+                worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+        med = max(float(np.median(r[key]["frame_ms"][3:])) for r in res)
+        launches = [r[key]["launches"] for r in res]
+        log(f"{tag}: {key} ({S} streams, {F} frames, blocks {sorted(blocks)}): against the one-rank fleet with the "
+            f"same phases max {worst[0]:.3e} deg, {worst[1]:.3e} m (bars {FLEET_VS_SINGLE_ROT_DEG} deg, "
+            f"{FLEET_VS_SINGLE_TRANS_M} m); median fleet frame {med:.2f} ms on the slowest rank, {S * 1e3 / med:.2f} "
+            f"frames/s aggregate; matcher launches per rank {launches} [{card}; {where}]")
+        if worst[0] >= FLEET_VS_SINGLE_ROT_DEG or worst[1] >= FLEET_VS_SINGLE_TRANS_M:
+            raise AssertionError(f"{tag}: {key} differs from the one-rank fleet")
+        if any(n != F - 1 for n in launches):
+            raise AssertionError(f"{tag}: {key}: matcher launches per rank != fleet frames tracked")
+
+    # training: rank 0's whole gradients against the one-device step on the card
+    for name, (loss, grads, _) in res[0]["train"].items():
+        ref = ref_vos if name.startswith("train_vos") else ref_lfnet
+        hold_step(f"{tag} {name}", (loss, grads), ref, "sharded vs one device", card)
+        ms = [r["train"][name][2] for r in res]
+        log(f"{tag} {name}: {max(ms):.2f} ms per step on the slowest rank (CUDA events, median of "
+            f"{TRAIN_TIMED_STEPS} after {TRAIN_WARMUP_STEPS}), per rank {[round(m, 2) for m in ms]}; one device "
+            f"{one_device_ms[name.split()[0]]:.2f} ms on the same global batch [{card}; {where}]")
+    return sum(r["launches"] for r in res)
+
+
+def mesh_phases(inp: MeshInputs, card: str, phase_s: dict) -> int:
+    """The mesh phase with 2 ranks on cuda:0 over gloo, then, where the
+    machine has two or more cards, over NCCL with one rank per card (world
+    4 or 2); returns the matcher launches of all their ranks."""
+    import torch
+
+    t0 = time.perf_counter()
+    launches = mesh_phase(inp, "gloo", MESH_SHARED_WORLD, card, device="cuda:0")
+    phase_s["mesh, 2 ranks sharing one card"] = time.perf_counter() - t0
+    if torch.cuda.device_count() >= 2:
+        t0 = time.perf_counter()
+        world = 4 if torch.cuda.device_count() >= 4 else 2
+        launches += mesh_phase(inp, "nccl", world, card)
+        phase_s[f"mesh, nccl over {world} cards"] = time.perf_counter() - t0
+    return launches
+
+
+def mesh_only(seq, cfg, card: str) -> None:
+    """`chip_smoke.py --mesh-only`: the mesh phases and the one-rank runs
+    they are held to (the tracker, the 8-stream fleet, the training
+    batches), nothing else: a call on a machine with several cards."""
+    from bundletrack_tpu_torch.apps import train_lfnet, train_vos
+
+    _, _, poses = tracker_phase(seq, cfg, card)
+    fleet_seqs = render_fleet_sequences()
+    phases = fleet_phases(cfg, FLEET_STREAMS, FLEET_FRAMES)
+    outs, frame_ms, _ = run_fleet(cfg, fleet_seqs, FLEET_FRAMES, phases)
+    med = float(np.median(frame_ms[3:]))
+    log(f"fleet, one rank: {FLEET_STREAMS} streams, median fleet frame {med:.2f} ms ({FLEET_STREAMS * 1e3 / med:.2f} "
+        f"frames/s aggregate) over frames 3..{FLEET_FRAMES - 1} [{card}]")
+    inp = MeshInputs(seq, poses, fleet_seqs, phases, outs, train_lfnet.build_batches(96, 8, 8, 0)[0],
+                     train_vos.build_clips(96, 4, 4, 3, 0, "hard", 35)[2])
+    phase_s = {}
+    launches = mesh_phases(inp, card, phase_s)
+    log(f"mesh phases: matcher launches {launches} (all ranks); " + ", ".join(f"{k} {v:.1f} s"
+                                                                             for k, v in phase_s.items()))
+
+
+def main(argv) -> int:
+    import torch
+
+    if argv not in ([], ["--mesh-only"]):
+        print("usage: chip_smoke.py [--mesh-only]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1660,6 +2068,12 @@ def main() -> int:
     lf_cfg = with_lfnet(cfg)
     lfnet = shipped_lfnet(lf_cfg)
 
+    if argv == ["--mesh-only"]:
+        mesh_only(seq, cfg, card)
+        log(card)
+        log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                               "count": torch.cuda.device_count()}}))
+        return 0
     kernel = kernel_phase(seq, cfg, device, lf_cfg, lfnet)
     phase_s = {}
     t0 = time.perf_counter()
@@ -1678,7 +2092,7 @@ def main() -> int:
     phase_s["nocs chain"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     fleet_seqs = render_fleet_sequences()
-    fleet_launches = fleet_phase(fleet_seqs, cfg, card)
+    fleet_launches, fleet_ph, fleet_outs = fleet_phase(fleet_seqs, cfg, card)
     phase_s["fleet"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     passes, fail_seq = render_new_phase_inputs()
@@ -1705,18 +2119,20 @@ def main() -> int:
 
     km.launches = 0
     t0 = time.perf_counter()
-    train_lfnet_phase(seq, card)
+    lfnet_batch = train_lfnet_phase(seq, card)
     phase_s["train lfnet"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    train_vos_phase(seq, card)
+    vos_clip = train_vos_phase(seq, card)
     phase_s["train vos"] = time.perf_counter() - t0
     if km.launches:  # the training paths reach no kernel of the port
         raise AssertionError(f"training phases launched the matcher {km.launches} times")
+    mesh_inputs = MeshInputs(seq, classical_poses, fleet_seqs, fleet_ph, fleet_outs, lfnet_batch, vos_clip)
+    mesh_launches = mesh_phases(mesh_inputs, card, phase_s)
     launches = {
         "classical tracker phase": classical_launches, "lfnet CLI phase (filter 0 and filtered PNGs)": cli_launches,
         "VOS chain": vos_chain_launches, "NOCS chain": nocs_launches, "fleet": fleet_launches,
         "hard world": hard_launches, "fail path": fail_launches, "verify reject": verify_launches,
-        "lfnet fleet": lfnet_fleet_launches, "pcg tracker": pcg_launches,
+        "lfnet fleet": lfnet_fleet_launches, "pcg tracker": pcg_launches, "mesh (all ranks)": mesh_launches,
     }
     kernel["launches"] = sum(launches.values())
     log("matcher launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()) + "; training phases 0")
@@ -1736,4 +2152,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

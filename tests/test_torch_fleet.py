@@ -35,7 +35,7 @@ from bundletrack_tpu.tracker.state import FrameObservation as JaxObservation
 from bundletrack_tpu_torch import config as tcfg
 from bundletrack_tpu_torch.config import load_config
 from bundletrack_tpu_torch.data import render_synthetic_sequence
-from bundletrack_tpu_torch.parallel import fleet_observation, init_fleet_state, make_fleet_step
+from bundletrack_tpu_torch.parallel import fleet_observation, init_fleet_state, make_fleet_step, make_mesh
 from bundletrack_tpu_torch.solver import gauss_newton as tgn
 from bundletrack_tpu_torch.solver import residuals as tres
 from bundletrack_tpu_torch.tracker.driver import Tracker
@@ -227,11 +227,21 @@ def test_a_failing_stream_leaves_the_others_alone(sequences, jax_fleet, port_fle
         np.testing.assert_array_equal(outs[f].ob_in_cam[0].numpy(), port_fleet[f].ob_in_cam[0].numpy())
 
 
-def test_mesh_raises_lfnet_builds_and_the_card_is_the_default():
-    """Only a mesh still raises; an LF-Net frontend builds a fleet step
+def test_mesh_raises_lfnet_builds_and_the_card_is_the_default(tmp_path):
+    """A mesh whose size is not the world's raises; a one-rank mesh builds a
+    fleet step that holds every stream (tests/test_torch_parallel.py runs
+    the sharded fleets); an LF-Net frontend builds a fleet step
     (tests/test_torch_fleet_lfnet.py runs it); the card is the default."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
-        make_fleet_step(port_cfg(), H, W, mesh=object())
+    with pytest.raises(ValueError, match="has 2 ranks, the world 1"):
+        make_mesh({"stream": 2})
+    torch.distributed.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1,
+                                         rank=0)
+    try:
+        mesh = make_mesh({"stream": 1})
+        assert callable(make_fleet_step(port_cfg(), H, W, mesh=mesh))
+        assert init_fleet_state(port_cfg(), H, W, 3, device="cpu", mesh=mesh).kf_pose.shape[0] == 3
+    finally:
+        torch.distributed.destroy_process_group()
     lf_cfg = port_cfg().replace(frontend=dataclasses.replace(port_cfg().frontend, kind="lfnet"))
     assert callable(make_fleet_step(lf_cfg, H, W, lfnet_apply=lambda crops: None))
     if torch.cuda.is_available():

@@ -6,7 +6,9 @@ tracks two frames on the CPU with each frontend and with a fleet of two
 streams, runs the CLI chain, run_vos on two frames, one NOCS frame
 through run_tracking --dataset nocs, the hard suite and the frontend
 metrics on one tiny hard pass, reads a Paeth-filtered PNG, and trains
-LF-Net for two steps (then resumes for a third) and VOS for one.
+LF-Net for two steps (then resumes for a third) and VOS for one; and in
+two gloo ranks spawned from a fresh interpreter, which step a fleet
+sharded over "stream" and train VOS data-parallel (tests/torch_mesh_ranks.py).
 """
 
 import ast
@@ -15,6 +17,8 @@ import subprocess
 import sys
 
 import pytest
+
+import torch_mesh_ranks as ranks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "bundletrack_tpu_torch")
@@ -142,7 +146,8 @@ def test_scan_covers_every_module_of_the_slices():
                    "parallel/fleet.py", "fleet_bench.py", "data/hard_world.py", "data/pairs.py",
                    "eval/hard_suite.py", "eval/frontend_eval.py", "models/lfnet_train.py", "models/vos_train.py",
                    "models/optim.py", "apps/train_lfnet.py", "apps/train_vos.py", "utils/checkpoint.py",
-                   "utils/timing.py", "utils/profiling.py", "utils/viz.py", "frontend/port_tf1.py"):
+                   "utils/timing.py", "utils/profiling.py", "utils/viz.py", "frontend/port_tf1.py",
+                   "parallel/distributed.py", "parallel/pair_sharded.py", "ops/collectives.py"):
         assert os.path.join("bundletrack_tpu_torch", module) in scanned, module
 
 
@@ -153,3 +158,22 @@ def test_running_the_port_loads_no_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+_SPAWN = r"""
+import sys
+sys.path.insert(0, "tests")
+import torch_mesh_ranks as ranks
+from bundletrack_tpu_torch.parallel.distributed import spawn_ranks
+spawn_ranks(ranks.run_jobs, 2, (sys.argv[1], [("hygiene_rank", ())]), backend="gloo", device="cpu",
+            timeout_s=120.0, join_s=240.0)
+"""
+
+
+def test_a_spawned_rank_loads_no_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _SPAWN, str(tmp_path)], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for r in ranks.load(str(tmp_path), "hygiene", 2, job="hygiene_rank"):
+        assert r["finite"] and r["forbidden_modules"] == [], r

@@ -37,6 +37,7 @@ from bundletrack_tpu_torch.data import pairs, render_hard_sequence, render_synth
 from bundletrack_tpu_torch.frontend import detector_ops as ops
 from bundletrack_tpu_torch.frontend.lfnet import FrozenBN, LFNet, lfnet_state_dict_from_flax
 from bundletrack_tpu_torch.models import LFNetTrainBatch, cosine_lr, cosine_schedule, lfnet_loss, make_adam
+from bundletrack_tpu_torch.parallel import make_mesh
 from bundletrack_tpu_torch.utils.flax_layers import GroupNorm
 
 torch.set_num_threads(2)
@@ -318,9 +319,14 @@ def test_train_lfnet_resume(tmp_path):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-def test_train_lfnet_mesh_over_devices_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
-        train_lfnet.main(["--steps", "1"] + CLI_ARGS[:-4] + ["--mesh", "4,2", "--device", "cpu"])
+def test_train_lfnet_mesh_in_one_process_trains_on_one_device():
+    """As the JAX app with one device: a --mesh in a world of one rank
+    trains on that device; a mesh whose size is not the world's raises
+    (tests/test_torch_train_sharded.py runs the CLI over ranks)."""
+    metrics = train_lfnet.main(["--steps", "1"] + CLI_ARGS[:-4] + ["--mesh", "4,2", "--device", "cpu"])
+    assert np.isfinite(float(metrics["loss"]))
+    with pytest.raises(ValueError, match="has 8 ranks, the world 1"):
+        make_mesh({"data": 4, "model": 2})
 
 
 def test_train_lfnet_defaults_to_the_card(monkeypatch):

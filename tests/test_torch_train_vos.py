@@ -25,6 +25,7 @@ from bundletrack_tpu_torch.data import render_synthetic_sequence
 from bundletrack_tpu_torch.data.native_io import read_png, write_png
 from bundletrack_tpu_torch.models import VOSTrainBatch, vos, vos_loss, vos_rollout_loss
 from bundletrack_tpu_torch.ops.numerics import flush_denormals
+from bundletrack_tpu_torch.parallel import make_mesh
 
 torch.set_num_threads(2)
 
@@ -181,7 +182,9 @@ def test_train_vos_cli(capsys):
 
 def test_train_vos_rollout_warm_start_and_mesh(capsys):
     """--rollout with --init-npz (the shipped width 96) and a hard world;
-    a width that differs from the npz's raises; a mesh over devices raises."""
+    a width that differs from the npz's raises; a --mesh in a world of one
+    rank trains on one device, and a mesh whose size is not the world's
+    raises."""
     metrics = train_vos.main(["--steps", "2", "--size", "32", "--batch", "2", "--clip-len", "3", "--num-seqs", "2",
                               "--log-every", "1", "--rollout", "--world", "hard", "--init-npz",
                               "checkpoints/vos_params.npz", "--width", "96", "--device", "cpu"])
@@ -189,8 +192,10 @@ def test_train_vos_rollout_warm_start_and_mesh(capsys):
     assert np.isfinite(float(metrics["loss"]))
     with pytest.raises(ValueError, match="width 96"):
         train_vos.main(["--steps", "1", "--size", "32", "--init-npz", "checkpoints/vos_params.npz", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
-        train_vos.main(["--steps", "1", "--size", "32", "--mesh", "4", "--device", "cpu"])
+    metrics = train_vos.main(["--steps", "1", "--size", "32", "--mesh", "4", "--device", "cpu"])
+    assert np.isfinite(float(metrics["loss"]))
+    with pytest.raises(ValueError, match="has 4 ranks, the world 1"):
+        make_mesh({"data": 4})
 
 
 def test_run_vos_reads_the_trainers_checkpoint(tmp_path):
