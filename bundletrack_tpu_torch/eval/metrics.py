@@ -1,9 +1,9 @@
-"""Pose accuracy metrics: ADD and ADD-S with the VOCap AUC, and pose errors.
+"""Pose accuracy metrics: ADD and ADD-S with the VOCap AUC, pose errors and
+5deg5cm.
 
-The port's own copy of the parts of bundletrack_tpu/eval/metrics.py the
-tracker checks and the YCBInEOAT evaluation use (reference: scripts/Utils.py
-add/adi, scripts/eval_ycbineoat.py VOCap with a 0.1 m cutoff x100).
-Host-side numpy + scipy.
+The port's own copy of bundletrack_tpu/eval/metrics.py (reference:
+scripts/Utils.py add/adi, scripts/eval_ycbineoat.py VOCap with a 0.1 m
+cutoff x100, scripts/benchmark.py NOCS 5deg5cm).  Host-side numpy + scipy.
 """
 
 from __future__ import annotations
@@ -50,6 +50,10 @@ def vocap_auc(errors, max_val: float = 0.1) -> float:
     return float(np.sum((mrec[i] - mrec[i - 1]) * mpre[i]) * (1.0 / max_val) * 100.0)
 
 
+def add_auc(preds, gts, model_pts, max_val: float = 0.1) -> float:
+    return vocap_auc([add_error(p, g, model_pts) for p, g in zip(preds, gts)], max_val)
+
+
 def adds_auc(preds, gts, model_pts, max_val: float = 0.1) -> float:
     return vocap_auc([adi_error(p, g, model_pts) for p, g in zip(preds, gts)], max_val)
 
@@ -58,3 +62,11 @@ def pose_errors(pred: np.ndarray, gt: np.ndarray):
     """(rotation error in degrees, translation error in meters)."""
     rot = Rotation.from_matrix(pred[:3, :3] @ gt[:3, :3].T).magnitude()
     return float(np.rad2deg(rot)), float(np.linalg.norm(pred[:3, 3] - gt[:3, 3]))
+
+
+def five_deg_five_cm(preds, gts) -> float:
+    """Share (%) of frames within 5 degrees and 5 cm (the NOCS protocol,
+    reference benchmark.py:296-320)."""
+    preds = list(preds)
+    ok = sum(r <= 5.0 and t <= 0.05 for r, t in (pose_errors(p, g) for p, g in zip(preds, gts)))
+    return 100.0 * ok / max(len(preds), 1)

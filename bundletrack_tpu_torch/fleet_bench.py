@@ -1,6 +1,7 @@
 """Fleet tracking on the card: aggregate frames/s of S streams in one step.
 
     python3 -m bundletrack_tpu_torch.fleet_bench [--frontend classical|lfnet|both]
+        [--streams S ...]
 
 Mirrors bench.py's `_bench_fleet` and `_bench_fleet_table`: S identical
 streams (the same rendered sequence in every stream; each stream draws its
@@ -27,7 +28,8 @@ the configuration: no row cuts trials, pairs or widths, and none is split
 into chunks of streams.
 
 Sequences: a textured cube orbited at 2 deg/frame, as bench.py renders.
-Needs a CUDA device.
+`--streams` keeps only the 480x640 rows with those S (the 240x320 table is
+left out).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -165,6 +167,7 @@ def fleet_row(cfg, seq, S: int, timed_frames: int, card: str, lfnet_apply=None) 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--frontend", choices=("classical", "lfnet", "both"), default="classical")
+    parser.add_argument("--streams", type=int, nargs="+", help="only the 480x640 rows with these S")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("fleet_bench: no CUDA device is available")
@@ -174,11 +177,12 @@ def main(argv=None) -> int:
     seq480 = render(480, 640, n)
     result = collections.defaultdict(list)
     if args.frontend in ("classical", "both"):
-        seq240 = render(240, 320, n)
-        for S in TABLE_480:
+        for S in args.streams or TABLE_480:
             result["table_480x640"].append(fleet_row(bench_config(480, 640), seq480, S, TIMED, card))
-        for S in TABLE_240:
-            result["table_240x320"].append(fleet_row(bench_config(240, 320), seq240, S, TIMED, card))
+        if not args.streams:
+            seq240 = render(240, 320, n)
+            for S in TABLE_240:
+                result["table_240x320"].append(fleet_row(bench_config(240, 320), seq240, S, TIMED, card))
     if args.frontend in ("lfnet", "both"):
         cfg = lfnet_config(480, 640)
         apply = shipped_lfnet(cfg)

@@ -16,3 +16,8 @@ def huber(e_sq: torch.Tensor, delta: float):
     rho0 = torch.where(quadratic, e_sq, 2.0 * delta * e - delta * delta)
     rho1 = torch.where(quadratic, torch.ones_like(e), delta / e)
     return rho0, rho1
+
+
+def huber_weight(e_sq: torch.Tensor, delta: float) -> torch.Tensor:
+    """The IRLS weight alone."""
+    return huber(e_sq, delta)[1]

@@ -7,10 +7,12 @@ so a fleet frame issues about the launches of one stream's frame, makes at
 most the same 2 device-to-host reads, and matches all S*P BA pairs in one
 launch of the matcher kernel.
 
-The streams advance in lockstep: all start at frame 0 and every step
-advances every stream, as in the JAX fleet, which has no per-stream reset
-either.  With the LF-Net frontend (`lfnet_apply`), the S masked ROI crops
-go through one batched forward per fleet frame.
+Each stream keeps its own frame count, as each stream of the JAX fleet
+takes its own side of the first-frame lax.cond: a stream reset to a fresh
+state (tracker/state.set_streams, the JAX `.at[idx].set` update) starts on
+the next step while the others go on tracking (tracker/bundler.py splits
+that frame).  With the LF-Net frontend (`lfnet_apply`), the S masked ROI
+crops go through one batched forward per fleet frame, new streams included.
 
 With a mesh (parallel/distributed.make_mesh) the streams are sharded over
 its "stream" axis: each rank holds and steps only its block of the
@@ -56,9 +58,9 @@ def _has_axis(mesh, axis) -> bool:
 def init_fleet_state(cfg: TrackerConfig, H: int, W: int, num_streams: int, device=None,
                      seed: int = 0, mesh=None) -> TrackerState:
     """A TrackerState with a leading stream axis on every tensor, all
-    streams at frame 0; stream s draws its RANSAC phases from a generator
-    seeded with seed + s (so a fleet of one equals Tracker(seed)).  Runs on
-    the card unless `device` says otherwise.
+    streams at frame 0 (one host count per stream); stream s draws its
+    RANSAC phases from a generator seeded with seed + s (so a fleet of one
+    equals Tracker(seed)).  Runs on the card unless `device` says otherwise.
 
     With a mesh that has a "stream" axis, the state holds only this rank's
     block of the `num_streams` streams, each still seeded by its global
@@ -75,6 +77,7 @@ def init_fleet_state(cfg: TrackerConfig, H: int, W: int, num_streams: int, devic
     return base._replace(
         **{n: tile(v) for n, v in base._asdict().items() if isinstance(v, torch.Tensor)},
         mappoints=type(base.mappoints)(*(tile(t) for t in base.mappoints)),
+        frame_count=(0,) * len(streams),
         rng=tuple(_generator(device, seed + s) for s in streams),
     )
 

@@ -14,8 +14,12 @@ steps S streams whose every tensor carries a leading stream axis, and
 `make_track_frame` is its S = 1 view.  The JAX step is one traced program
 whose branches are lax.cond / jnp.where, and selects under vmap.  Here:
 
-- the first frame is a host `if` on the host frame count: the streams
-  advance in lockstep, so it costs no read;
+- each stream's first frame is a host `if` on its host frame count, so
+  it costs no read.  When some streams start (count 0) while the others
+  run, the frame is split: the running streams are tracked as a fleet of
+  their own (one matcher launch on their S_run * P pairs, the two reads
+  below on their values only), the new streams start as a fleet of their
+  own, and both are written back into the whole state in stream order;
 - the BA solve runs for all streams when any stream needs it (one read of
   any/all), and each stream keeps its solved poses only if it needed the
   solve, as lax.cond under vmap does;
@@ -88,6 +92,9 @@ from bundletrack_tpu_torch.tracker.state import (
     FrameObservation,
     TrackerState,
     TrackOutput,
+    _put_streams,
+    _stream_rows,
+    _take_streams,
     add_stream_axis,
     drop_stream_axis,
 )
@@ -152,6 +159,20 @@ def _gather_match_points(ba_pts, ba_normals, pair_i, pair_j, matches: MatchResul
 def _stream_select(flag, a, b):
     """Per-stream select: a where flag[s], else b (flag [S], a/b [S, ...])."""
     return torch.where(flag.reshape(-1, *([1] * (a.dim() - 1))), a, b)
+
+
+def _select(trees, rows):
+    """Streams `rows` of each tensor, or of each NamedTuple of tensors."""
+    pick = lambda t: t.index_select(0, rows)  # noqa: E731
+    return tuple(pick(t) if isinstance(t, torch.Tensor) else type(t)(*map(pick, t)) for t in trees)
+
+
+def _counts_on(counts, dev) -> torch.Tensor:
+    """The streams' host frame counts as [S] int32 on the device: a fill
+    when they are equal, else a copy that the device does not wait for."""
+    if len(set(counts)) == 1:
+        return torch.full((len(counts),), counts[0], dtype=torch.int32, device=dev)
+    return torch.as_tensor(counts, dtype=torch.int32).to(dev, non_blocking=True)
 
 
 def _admit_keyframe(state: TrackerState, feats: FrameFeatures, pose, fd: FrameDense,
@@ -331,7 +352,7 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
         )
         st = _set_prev(st, feats, init_pose)
         st = st._replace(
-            frame_count=1,
+            frame_count=(1,) * S,
             last_status=torch.full((S,), STATUS_OK, **i32),
             prev_delta=torch.eye(4, dtype=init_pose.dtype, device=dev).expand(S, 4, 4).clone(),
             pred_pose=init_pose,
@@ -347,18 +368,37 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
 
     def step(state: TrackerState, obs: FrameObservation, init_pose: torch.Tensor,
              phases: Optional[tuple] = None):
-        dev = state.kf_pose.device
-        S, Kp = state.kf_frame_id.shape
+        S = state.kf_frame_id.shape[0]
         obs = _normalize_obs(obs)
         mask, pts_map, nrm_map, val_map, fd, K_low = _preprocess(obs, cfg)
         feats = extract_frame_features(obs.gray, mask, pts_map, nrm_map, val_map, cfg.frontend,
                                        lfnet_apply)
         n_feat = torch.sum(feats.valid, dim=-1)
         roi_ok = torch.sum(mask, dim=(-2, -1)) > 100  # the reference FAILs on a tiny ROI
+        per_stream = (feats, fd, K_low, n_feat, roi_ok)
 
-        if state.frame_count == 0:  # a host int: no read
+        new = [s for s, c in enumerate(state.frame_count) if c == 0]  # host ints: no read
+        if len(new) == S:
             return first_frame(state, feats, fd, init_pose)
+        if not new:
+            return track(state, *per_stream, phases)
+        # a mixed frame: the running and the new streams each stepped as a
+        # fleet of their own, then written back in stream order
+        run = [s for s in range(S) if s not in new]
+        run_rows, new_rows = _stream_rows(run, init_pose.device), _stream_rows(new, init_pose.device)
+        if phases is not None:
+            phases = tuple(p.index_select(0, run_rows.to(p.device)) for p in phases)
+        st_run, out_run = track(_take_streams(state, run), *_select(per_stream, run_rows), phases)
+        st_new, out_new = first_frame(_take_streams(state, new), *_select((feats, fd, init_pose), new_rows))
+        st = _put_streams(_put_streams(state, run, st_run), new, st_new)
+        out = TrackOutput(*(a.new_empty((S, *a.shape[1:])).index_copy_(0, run_rows, a).index_copy_(0, new_rows, b)
+                            for a, b in zip(out_run, out_new)))
+        return st, out
 
+    def track(state, feats, fd, K_low, n_feat, roi_ok, phases):
+        """A frame of streams that have all started."""
+        dev = state.kf_pose.device
+        S, Kp = state.kf_frame_id.shape
         if phases is None:
             drawn = [(draw_phases((), rc.max_iter, M, g), draw_phases((P_PAIRS,), rc.max_iter, M, g))
                      for g in state.rng]
@@ -476,7 +516,7 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
         if any_admit:
             sel = None if all_admit else admit
             new_slot = eviction_slot(st.kf_frame_id, st.kf_pose)
-            frame_id = torch.full((S,), state.frame_count, dtype=torch.int32, device=dev)
+            frame_id = _counts_on(state.frame_count, dev)
             st_new = _admit_keyframe(st, feats, pose_final, fd, frame_id, new_slot, admit=sel)
             if fc.map_points:
                 # absorb the new keyframe's verified BA edges into the landmark
@@ -519,7 +559,7 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
             se3_compose(new_delta, pose_final),
         )
         st = st._replace(
-            frame_count=state.frame_count + 1,
+            frame_count=tuple(c + 1 for c in state.frame_count),
             last_status=status,
             need_reinit=is_fail,
             fail_streak=torch.where(is_fail, st.fail_streak + 1, 0).to(torch.int32),
@@ -536,3 +576,13 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
         return st, out
 
     return step
+
+
+def track_frame(state: TrackerState, obs: FrameObservation, init_pose: torch.Tensor, cfg: TrackerConfig,
+                phases: Optional[tuple] = None):
+    """One frame of one stream through a step built for the observation's
+    H x W (a convenience: the step is built anew on every call; keep the
+    one `make_track_frame` returns to track a sequence).  `phases` as the
+    step's."""
+    H, W = obs.gray.shape
+    return make_track_frame(cfg, H, W)(state, obs, init_pose, phases)

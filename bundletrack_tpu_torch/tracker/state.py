@@ -7,9 +7,12 @@ device that draws the RANSAC phases, and that `frame_count` is a host int:
 the step branches on the first frame without reading the device.
 
 A fleet's state (parallel/fleet.py) is the same NamedTuple with a leading
-stream axis S on every tensor and a tuple of S generators.  Its streams
-advance in lockstep, all starting at frame 0, so they share one host
-`frame_count`, as every stream of the JAX fleet has the same count.
+stream axis S on every tensor, a tuple of S generators and a tuple of S
+host frame counts, one per stream as the JAX fleet's [S] `frame_count`:
+streams may be at different frames, and a stream whose count is 0 starts
+on the next step.  `set_streams` writes streams of one fleet state into
+another, as the JAX pytree update `a.at[idx].set(b[idx])` does; it is how
+a stream is reset to join a running fleet.
 
 `state_from_numpy` / `state_to_numpy` and their fleet forms carry a state
 across as numpy arrays, so both trackers can start from the same state.
@@ -64,7 +67,7 @@ class TrackerState(NamedTuple):
     # landmark memory
     mappoints: MapPointTable
     # bookkeeping
-    frame_count: int  # frames seen; a host int (the JAX state's [] int32)
+    frame_count: int  # frames seen; a host int (the JAX state's [] int32); a fleet's: a tuple of S ints
     last_status: torch.Tensor  # [] int32
     need_reinit: torch.Tensor  # [] bool
     fail_streak: torch.Tensor  # [] int32: consecutive FAIL frames
@@ -154,14 +157,12 @@ def state_from_numpy(arrays: dict, device, seed: int = 0) -> TrackerState:
 
 def fleet_state_from_numpy(arrays: dict, device, seed: int = 0) -> TrackerState:
     """A fleet state from numpy arrays with a leading stream axis, such as
-    the leaves of the JAX package's fleet state.  Every stream must be at
-    the same frame; stream s's generator is seeded with seed + s."""
-    counts = np.asarray(arrays["frame_count"]).reshape(-1)
-    if np.any(counts != counts[0]):
-        raise ValueError(f"the fleet's streams advance together; frame counts {counts.tolist()} differ")
-    arrays = dict(arrays, frame_count=counts[0])
+    the leaves of the JAX package's fleet state; each stream keeps its own
+    frame count, and stream s's generator is seeded with seed + s."""
+    counts = tuple(int(c) for c in np.asarray(arrays["frame_count"]).reshape(-1))
     device = torch.device(device)
-    return _from_numpy(arrays, device, tuple(_generator(device, seed + s) for s in range(len(counts))))
+    return _from_numpy(dict(arrays, frame_count=counts), device,
+                       tuple(_generator(device, seed + s) for s in range(len(counts))))
 
 
 def _from_numpy(arrays: dict, device, rng) -> TrackerState:
@@ -178,7 +179,7 @@ def _from_numpy(arrays: dict, device, rng) -> TrackerState:
                 obs=_tensor_from_numpy(obs, device), rev=_tensor_from_numpy(rev, device)
             )
         elif name == "frame_count":
-            fields[name] = int(val)
+            fields[name] = val if isinstance(val, tuple) else int(val)
         else:
             fields[name] = _tensor_from_numpy(val, device)
     return TrackerState(**fields, rng=rng)
@@ -196,7 +197,7 @@ def state_to_numpy(state: TrackerState) -> dict:
         if name == "mappoints":
             out[name] = {"obs": _tensor_to_numpy(val.obs), "rev": _tensor_to_numpy(val.rev)}
         elif name == "frame_count":
-            out[name] = np.full(state.last_status.shape, val, np.int32)
+            out[name] = np.asarray(val, np.int32)
         else:
             out[name] = _tensor_to_numpy(val)
     return out
@@ -210,6 +211,7 @@ def add_stream_axis(state: TrackerState) -> TrackerState:
     return state._replace(
         **{n: v[None] for n, v in state._asdict().items() if isinstance(v, torch.Tensor)},
         mappoints=MapPointTable(state.mappoints.obs[None], state.mappoints.rev[None]),
+        frame_count=(state.frame_count,),
         rng=(state.rng,),
     )
 
@@ -219,5 +221,50 @@ def drop_stream_axis(state: TrackerState) -> TrackerState:
     return state._replace(
         **{n: v[0] for n, v in state._asdict().items() if isinstance(v, torch.Tensor)},
         mappoints=MapPointTable(state.mappoints.obs[0], state.mappoints.rev[0]),
+        frame_count=state.frame_count[0],
         rng=state.rng[0],
     )
+
+
+def _stream_rows(idx, device) -> torch.Tensor:
+    """Stream indices as int64 on the device (a copy from the host that the
+    device does not wait for: no synchronisation)."""
+    return torch.as_tensor(list(idx), dtype=torch.int64).to(device, non_blocking=True)
+
+
+def _take_streams(state: TrackerState, idx) -> TrackerState:
+    """Streams `idx` (host ints) of a fleet state, in that order, as a fleet
+    state of their own; every tensor is gathered (a copy)."""
+    rows = _stream_rows(idx, state.kf_pose.device)
+    return state._replace(
+        **{n: v.index_select(0, rows) for n, v in state._asdict().items() if isinstance(v, torch.Tensor)},
+        mappoints=MapPointTable(*(t.index_select(0, rows) for t in state.mappoints)),
+        frame_count=tuple(state.frame_count[s] for s in idx),
+        rng=tuple(state.rng[s] for s in idx),
+    )
+
+
+def _put_streams(state: TrackerState, idx, part: TrackerState) -> TrackerState:
+    """`state` with its stream idx[k] replaced by stream k of `part`, out of
+    place: the result's tensors are new, `state` is left as it was."""
+    rows = _stream_rows(idx, state.kf_pose.device)
+    counts, rng = list(state.frame_count), list(state.rng)
+    for k, s in enumerate(idx):
+        counts[s], rng[s] = part.frame_count[k], part.rng[k]
+    return state._replace(
+        **{n: v.index_copy(0, rows, getattr(part, n).to(v.dtype)) for n, v in state._asdict().items()
+           if isinstance(v, torch.Tensor)},
+        mappoints=MapPointTable(*(a.index_copy(0, rows, b) for a, b in zip(state.mappoints, part.mappoints))),
+        frame_count=tuple(counts),
+        rng=tuple(rng),
+    )
+
+
+def set_streams(fleet: TrackerState, idx, other: TrackerState) -> TrackerState:
+    """`fleet` with streams `idx` (host ints) taken from `other`, a fleet
+    state of the same shapes: the port's spelling of the JAX pytree update
+    `jax.tree.map(lambda a, b: a.at[idx].set(b[idx]), fleet, other)`.  With
+    `other` a fresh init_fleet_state it resets those streams, which then
+    start again on the next step with their own init pose.  Out of place;
+    the streams' generators are `other`'s own objects."""
+    return _put_streams(fleet, idx, _take_streams(other, idx))

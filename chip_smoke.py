@@ -61,6 +61,16 @@
    [128, 512, 256] with 960 pairs (a `mutual` row may differ only at a
    column near tie, as in phase 2), and timed there with its bound.  Then aggregate frames/s at S = 1, 4 and 8 on
    bench.py's tracking configuration (`fleet_bench.fleet_row`).
+   Then the join run: the same 8 streams and phases for 12 fleet frames,
+   streams 4-7 reset to a fresh `init_fleet_state` before fleet frame 4
+   (`tracker.set_streams`), each starting again there at its own truth;
+   bars: every stream and frame OK, streams 0-3 within FLEET_VS_SINGLE_*
+   of the fleet phase's poses, each joined stream within them of a
+   single-stream Tracker started at frame 4 with the same phases, 11
+   matcher launches (one per fleet frame in which a stream runs), and the
+   matcher of the join frame, on the 4 running streams' 480 pairs only,
+   held to its plain version.  It logs the join frame's ms beside the
+   all-running frames' and the aggregate frames/s over the 12 frames.
 10. Hard-world phase: bench.py's hard suite on the card, the five passes of
    `hard_passes` (multi-shape, degraded depth and masks, 2x scale, fast
    rotation) at 480x640 with 16 frames each, rendered in a process pool,
@@ -130,7 +140,9 @@
    equal, within MESH_TRACKER_ATOL of phase 3's poses and its bars; each
    rank's matcher launches held to the plain version on its block); phase
    9's 8 streams over "stream" (4 per rank) and 2 streams over stream=1 x
-   pairs=2, within the fleet's bars of phase 9's poses; LF-Net at
+   pairs=2, within the fleet's bars of phase 9's poses, and the join run
+   over "stream" (rank 1's streams join late) within them of the one-rank
+   join run; LF-Net at
    dp=2,tp=1 and dp=1,tp=2 (phase 16's batch) and VOS at dp=2 (phase 17's
    clip), one step against the one-device step on the card (the training
    bars).  Logs ms per tracked frame, the fleets' aggregate frames/s, ms
@@ -147,8 +159,8 @@ printed.  Without a CUDA device, or without the package beside it, it fails.
 
     python3 chip_smoke.py --mesh-only
 
-runs step 1, the one-rank tracker and fleet runs of phases 3 and 9 and
-phase 18 alone: the call to make on a machine with several cards.
+runs step 1, the one-rank tracker, fleet and join runs of phases 3 and 9
+and phase 18 alone: the call to make on a machine with several cards.
 """
 
 from __future__ import annotations
@@ -210,6 +222,10 @@ FLEET_STREAMS, FLEET_FRAMES = 8, 12
 # order on the card (the tolerance of the port's trajectory against JAX's)
 FLEET_VS_SINGLE_ROT_DEG, FLEET_VS_SINGLE_TRANS_M = 0.01, 1e-4
 FLEET_RATE_FRAMES = 5  # timed fleet frames per S in the frames/s rows
+# the join phase: streams 4-7 of the fleet phase's 8 are reset to a fresh
+# state before this fleet frame and start again there (they join the
+# running fleet), held to the same bars as the fleet phase
+JOIN_FRAME = 4
 # stream 0 of the LF-Net fleet against a single-stream LF-Net Tracker with
 # the same phases: the batched bf16 forward may pick other cuDNN algorithms
 # than batch 1 does, so a few of the 512 keypoints per frame can differ and
@@ -860,23 +876,43 @@ def fleet_phases(cfg, S: int, F: int):
     ]
 
 
-def run_fleet(cfg, seqs, F: int, phases, lfnet=None):
+def joined_streams() -> list:
+    return list(range(FLEET_STREAMS // 2, FLEET_STREAMS))
+
+
+def join_init_poses(ob_in_cam, f: int, streams) -> np.ndarray:
+    """Every stream's init pose (its truth at frame 0), the streams that
+    join at frame f set to their truth at f; ob_in_cam [S, F, 4, 4]."""
+    ip = np.linalg.inv(ob_in_cam[:, 0]).astype(np.float32)
+    ip[streams] = np.linalg.inv(ob_in_cam[streams, f]).astype(np.float32)
+    return ip
+
+
+def run_fleet(cfg, seqs, F: int, phases, lfnet=None, join: bool = False):
     """F fleet frames of the streams `seqs` on the card; returns (per-frame
     (poses [S,4,4], statuses [S]) as numpy, fleet frame ms, matcher
-    launches)."""
+    launches).  With `join`, streams 4-7 are reset to a fresh
+    init_fleet_state before fleet frame JOIN_FRAME (tracker.set_streams)
+    and start again there at their truth; stream s is fed its sequence's
+    frame f at fleet frame f throughout."""
     import torch
 
     from bundletrack_tpu_torch.cardrun import H, W
     from bundletrack_tpu_torch.kernels import matching as km
     from bundletrack_tpu_torch.parallel import fleet_observation, init_fleet_state, make_fleet_step
+    from bundletrack_tpu_torch.tracker import set_streams
 
     S = len(seqs)
+    truth = np.stack([q.ob_in_cam[:F] for q in seqs])
     step = make_fleet_step(cfg, H, W, lfnet_apply=lfnet)
     state = init_fleet_state(cfg, H, W, S)  # the card, by default
-    ip = torch.as_tensor(np.stack([np.linalg.inv(q.ob_in_cam[0]) for q in seqs]).astype(np.float32), device="cuda")
+    ip = torch.as_tensor(join_init_poses(truth, 0, []), device="cuda")
     km.launches = 0  # count only this path's launches
     outs, frame_ms = [], []
     for f in range(F):
+        if join and f == JOIN_FRAME:
+            state = set_streams(state, joined_streams(), init_fleet_state(cfg, H, W, S))
+            ip = torch.as_tensor(join_init_poses(truth, f, joined_streams()), device="cuda")
         obs = fleet_observation(*(np.stack([getattr(q, k)[f] for q in seqs]) for k in ("gray", "depth", "mask")),
                                 np.stack([q.K for q in seqs]), "cuda")
         torch.cuda.synchronize()
@@ -980,6 +1016,73 @@ def fleet_phase(seqs, cfg, card: str) -> tuple:
     for n in (1, 4, 8):
         fleet_bench.fleet_row(fleet_bench.bench_config(H, W), seq, n, FLEET_RATE_FRAMES, card)
     return launches, phases, outs
+
+
+def join_phase(seqs, cfg, card: str, phases, fleet_outs) -> tuple:
+    """Streams 4-7 join the running fleet at fleet frame JOIN_FRAME: every
+    stream and frame OK; streams 0-3 held to the fleet phase's poses; each
+    joined stream held to a single-stream Tracker started at its join frame
+    with the same phases; one matcher launch per fleet frame in which a
+    stream runs; the matcher on the join frame (the running streams' pairs
+    only) held to its plain version.  Returns (matcher launches, per-frame
+    (poses, statuses))."""
+    from bundletrack_tpu_torch.cardrun import H, W
+    from bundletrack_tpu_torch.eval.metrics import pose_errors
+    from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.matching import pairwise
+    from bundletrack_tpu_torch.tracker.driver import Tracker
+
+    S, F, J, joined = FLEET_STREAMS, FLEET_FRAMES, JOIN_FRAME, joined_streams()
+    with recorded_calls(pairwise, "fused_mutual_match_pairs") as results, \
+            recorded_calls(pairwise, "fused_mutual_match_pairs", args=True) as calls:
+        outs, frame_ms, launches = run_fleet(cfg, seqs, F, phases, join=True)
+    if launches != F - 1:
+        raise AssertionError(f"join: matcher launches {launches} != fleet frames in which a stream runs {F - 1}")
+    worst_old, worst_new = (0.0, 0.0), (0.0, 0.0)
+    for s in range(S):
+        statuses = [int(outs[f][1][s]) for f in range(F)]
+        if any(statuses) or not all(np.all(np.isfinite(outs[f][0][s])) for f in range(F)):
+            raise AssertionError(f"join: stream {s}: not every frame is OK with a finite pose: {statuses}")
+        errs = [pose_errors(outs[f][0][s], seqs[s].ob_in_cam[f]) for f in range(F)]
+        if max(e[0] for e in errs) >= 1.0 or max(e[1] for e in errs) >= 0.005:
+            raise AssertionError(f"join: stream {s}: the tracker's pose bars missed (rotation < 1 deg, "
+                                 "translation < 5 mm)")
+        if s not in joined:  # against the fleet phase, same frames and phases
+            for f in range(F):
+                e = pose_errors(outs[f][0][s], fleet_outs[f][0][s])
+                worst_old = (max(worst_old[0], e[0]), max(worst_old[1], e[1]))
+            continue
+        single = Tracker(cfg, H, W)
+        init_pose = np.linalg.inv(seqs[s].ob_in_cam[J]).astype(np.float32)
+        q = seqs[s]
+        for f in range(J, F):
+            ph = None if f == J else tuple(p[s] for p in phases[f])
+            out = single.process_frame(q.gray[f], q.depth[f], q.mask[f], q.K, init_pose, phases=ph)
+            e = pose_errors(out.ob_in_cam.cpu().numpy(), outs[f][0][s])
+            worst_new = (max(worst_new[0], e[0]), max(worst_new[1], e[1]))
+    log(f"join: streams {joined} reset at fleet frame {J}; every stream and frame OK; streams 0-{joined[0] - 1} "
+        f"against the fleet phase max {worst_old[0]:.3e} deg, {worst_old[1]:.3e} m; joined streams against "
+        f"single-stream Trackers started at frame {J} with the same phases max {worst_new[0]:.3e} deg, "
+        f"{worst_new[1]:.3e} m (bars {FLEET_VS_SINGLE_ROT_DEG} deg, {FLEET_VS_SINGLE_TRANS_M} m); matcher launches "
+        f"{launches} for {F} fleet frames")
+    for name, w in (("streams 0-3 against the fleet phase", worst_old), ("joined streams", worst_new)):
+        if w[0] >= FLEET_VS_SINGLE_ROT_DEG or w[1] >= FLEET_VS_SINGLE_TRANS_M:
+            raise AssertionError(f"join: {name} miss the fleet's bars")
+    # frame 0 makes no matcher call, so the join frame's is call J - 1
+    ((table0, table1, table2, table3, pi, pj), gates), got = calls[J - 1], results[J - 1]
+    if len(pi) != (S - len(joined)) * P_PAIRS:
+        raise AssertionError(f"join: the join frame matched {len(pi)} pairs, not the running streams' "
+                             f"{(S - len(joined)) * P_PAIRS}")
+    table = (table0, table1, table2, table3)
+    ref = km.fused_mutual_match_pairs_reference(*table, pi, pj, **gates)
+    err = check_kernel("join", got, ref, table, pi, pj, gates)
+    running = [frame_ms[f] for f in range(1, F) if f != J]
+    log(f"join: the join frame {frame_ms[J]:.2f} ms ({S - len(joined)} streams tracked, {len(joined)} started; "
+        f"matcher on {len(pi)} pairs, max |dist diff| {err:.3e}) beside the all-running frames' median "
+        f"{float(np.median(running)):.2f} ms (frames 1-{J - 1}: {', '.join(f'{m:.2f}' for m in frame_ms[1:J])}; "
+        f"frame {J + 1} {frame_ms[J + 1]:.2f}); first frame {frame_ms[0]:.1f} ms; {S * F * 1e3 / sum(frame_ms):.2f} "
+        f"frames/s aggregate over the {F} fleet frames [{card}]")
+    return launches, outs
 
 
 def differing_keypoints(batched, single) -> int:
@@ -1688,6 +1791,7 @@ class MeshInputs(NamedTuple):
     fleet_seqs: list
     fleet_phases: list  # the fleet phase's RANSAC phases, per frame
     fleet_outs: list  # the one-rank fleet's (poses [S,4,4], statuses [S]) per frame
+    join_outs: list  # the one-rank fleet's with streams 4-7 joining at JOIN_FRAME (join phase)
     lfnet_batch: dict  # the LF-Net card-vs-CPU batch (96x96, batch 8)
     vos_clip: dict  # the VOS card-vs-CPU clip batch (96x96, batch 4, clip 4)
 
@@ -1773,9 +1877,10 @@ def mesh_tracker(rank: int, world: int, seq) -> dict:
             "other_collectives_ms": float(np.median([ms for n, ms in calls if n <= 1000]))}
 
 
-def mesh_fleet(rank: int, world: int, fleet, phases, axis_sizes: dict, S: int, F: int) -> dict:
+def mesh_fleet(rank: int, world: int, fleet, phases, axis_sizes: dict, S: int, F: int, join: bool = False) -> dict:
     """S streams of the fleet phase over `axis_sizes`, each rank feeding and
-    stepping its block of the streams with the fleet phase's phases."""
+    stepping its block of the streams with the fleet phase's phases; with
+    `join`, streams 4-7 reset before JOIN_FRAME as in the join phase."""
     import torch
 
     from bundletrack_tpu_torch.cardrun import H, W
@@ -1788,6 +1893,7 @@ def mesh_fleet(rank: int, world: int, fleet, phases, axis_sizes: dict, S: int, F
         make_fleet_step,
         make_mesh,
     )
+    from bundletrack_tpu_torch.tracker import set_streams
 
     cfg = TrackerConfig(bundle=BundleConfig(ba_mesh_axis="pairs" if "pairs" in axis_sizes else ""))
     mesh = make_mesh(axis_sizes)
@@ -1798,6 +1904,11 @@ def mesh_fleet(rank: int, world: int, fleet, phases, axis_sizes: dict, S: int, F
     km.launches = 0
     poses, statuses, frame_ms = [], [], []
     for f in range(F):
+        if join and f == JOIN_FRAME:
+            local = [s - mine.start for s in joined_streams() if s in mine]
+            if local:
+                state = set_streams(state, local, init_fleet_state(cfg, H, W, S, mesh=mesh))
+            ip = torch.as_tensor(join_init_poses(fleet["ob_in_cam"], f, joined_streams())[rows], device="cuda")
         obs = fleet_observation(*(fleet[k][rows, f] for k in ("gray", "depth", "mask")), fleet["K"][rows], "cuda")
         ph = None if phases[f] is None else tuple(p[rows].cuda() for p in phases[f])
         torch.cuda.synchronize()
@@ -1873,8 +1984,10 @@ def mesh_rank(rank: int, tmp: str, fleet_phases_cpu: list) -> None:
            "fleet_2d": mesh_fleet(rank, world, fleet, [None if p is None else tuple(t[:MESH_2D_STREAMS] for t in p)
                                                        for p in fleet_phases_cpu],
                                   {"stream": 1, "pairs": world}, MESH_2D_STREAMS, MESH_2D_FRAMES),
+           "fleet_join": mesh_fleet(rank, world, fleet, fleet_phases_cpu, {"stream": world}, FLEET_STREAMS,
+                                    FLEET_FRAMES, join=True),
            "train": mesh_train(rank, world, *batches)}
-    out["launches"] = out["tracker"]["launches"] + out["fleet"]["launches"] + out["fleet_2d"]["launches"]
+    out["launches"] = sum(out[k]["launches"] for k in ("tracker", "fleet", "fleet_2d", "fleet_join"))
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
 
 
@@ -1968,13 +2081,15 @@ def mesh_phase(inp: MeshInputs, backend: str, world: int, card: str, device=None
         raise AssertionError(f"{tag}: matcher launches per rank != tracked frames")
 
     # fleets: the ranks' blocks in rank order against the one-rank fleet
-    for key, S, F in (("fleet", FLEET_STREAMS, FLEET_FRAMES), ("fleet_2d", MESH_2D_STREAMS, MESH_2D_FRAMES)):
+    # (the join run's against the one-rank fleet with the same streams joining)
+    for key, S, F in (("fleet", FLEET_STREAMS, FLEET_FRAMES), ("fleet_2d", MESH_2D_STREAMS, MESH_2D_FRAMES),
+                      ("fleet_join", FLEET_STREAMS, FLEET_FRAMES)):
         blocks = {r[key]["streams"]: r[key] for r in res}
         worst = (0.0, 0.0)
         for f in range(F):
             poses = np.concatenate([b["poses"][f] for _, b in sorted(blocks.items())])
             statuses = np.concatenate([b["statuses"][f] for _, b in sorted(blocks.items())])
-            ref_poses, ref_statuses = inp.fleet_outs[f]
+            ref_poses, ref_statuses = (inp.join_outs if key == "fleet_join" else inp.fleet_outs)[f]
             if not np.array_equal(statuses, ref_statuses[:S]):
                 raise AssertionError(f"{tag}: {key}: statuses differ from the one-rank fleet at frame {f}")
             for s in range(S):
@@ -1988,8 +2103,12 @@ def mesh_phase(inp: MeshInputs, backend: str, world: int, card: str, device=None
             f"frames/s aggregate; matcher launches per rank {launches} [{card}; {where}]")
         if worst[0] >= FLEET_VS_SINGLE_ROT_DEG or worst[1] >= FLEET_VS_SINGLE_TRANS_M:
             raise AssertionError(f"{tag}: {key} differs from the one-rank fleet")
-        if any(n != F - 1 for n in launches):
-            raise AssertionError(f"{tag}: {key}: matcher launches per rank != fleet frames tracked")
+        # in the join run a rank whose streams all start on the join frame
+        # tracks none there, so it launches the matcher once less
+        want = [F - 1 - (key == "fleet_join" and all(s in joined_streams() for s in range(*st)))
+                for st in (r[key]["streams"] for r in res)]
+        if launches != want:
+            raise AssertionError(f"{tag}: {key}: matcher launches per rank {launches} != fleet frames tracked {want}")
 
     # training: rank 0's whole gradients against the one-device step on the card
     for name, (loss, grads, _) in res[0]["train"].items():
@@ -2032,7 +2151,8 @@ def mesh_only(seq, cfg, card: str) -> None:
     med = float(np.median(frame_ms[3:]))
     log(f"fleet, one rank: {FLEET_STREAMS} streams, median fleet frame {med:.2f} ms ({FLEET_STREAMS * 1e3 / med:.2f} "
         f"frames/s aggregate) over frames 3..{FLEET_FRAMES - 1} [{card}]")
-    inp = MeshInputs(seq, poses, fleet_seqs, phases, outs, train_lfnet.build_batches(96, 8, 8, 0)[0],
+    join_outs = run_fleet(cfg, fleet_seqs, FLEET_FRAMES, phases, join=True)[0]
+    inp = MeshInputs(seq, poses, fleet_seqs, phases, outs, join_outs, train_lfnet.build_batches(96, 8, 8, 0)[0],
                      train_vos.build_clips(96, 4, 4, 3, 0, "hard", 35)[2])
     phase_s = {}
     launches = mesh_phases(inp, card, phase_s)
@@ -2095,6 +2215,9 @@ def main(argv) -> int:
     fleet_launches, fleet_ph, fleet_outs = fleet_phase(fleet_seqs, cfg, card)
     phase_s["fleet"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    join_launches, join_outs = join_phase(fleet_seqs, cfg, card, fleet_ph, fleet_outs)
+    phase_s["join"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     passes, fail_seq = render_new_phase_inputs()
     phase_s["hard world render"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2126,11 +2249,11 @@ def main(argv) -> int:
     phase_s["train vos"] = time.perf_counter() - t0
     if km.launches:  # the training paths reach no kernel of the port
         raise AssertionError(f"training phases launched the matcher {km.launches} times")
-    mesh_inputs = MeshInputs(seq, classical_poses, fleet_seqs, fleet_ph, fleet_outs, lfnet_batch, vos_clip)
+    mesh_inputs = MeshInputs(seq, classical_poses, fleet_seqs, fleet_ph, fleet_outs, join_outs, lfnet_batch, vos_clip)
     mesh_launches = mesh_phases(mesh_inputs, card, phase_s)
     launches = {
         "classical tracker phase": classical_launches, "lfnet CLI phase (filter 0 and filtered PNGs)": cli_launches,
-        "VOS chain": vos_chain_launches, "NOCS chain": nocs_launches, "fleet": fleet_launches,
+        "VOS chain": vos_chain_launches, "NOCS chain": nocs_launches, "fleet": fleet_launches, "join": join_launches,
         "hard world": hard_launches, "fail path": fail_launches, "verify reject": verify_launches,
         "lfnet fleet": lfnet_fleet_launches, "pcg tracker": pcg_launches, "mesh (all ranks)": mesh_launches,
     }

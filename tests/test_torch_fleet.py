@@ -42,6 +42,7 @@ from bundletrack_tpu_torch.tracker.driver import Tracker
 from bundletrack_tpu_torch.tracker.state import (
     fleet_state_from_numpy,
     fleet_state_to_numpy,
+    set_streams,
 )
 
 torch.set_num_threads(2)
@@ -122,21 +123,43 @@ def sequences():
 
 
 @pytest.fixture(scope="module")
-def jax_fleet(sequences):
+def jax_step():
+    """The JAX fleet step, compiled once for the file."""
+    return j_make_fleet_step(jax_cfg(), H, W)
+
+
+def run_jax_fleet(step, sequences, reset=None):
     """The JAX fleet over the S streams: its state before each frame (numpy),
-    the phases each frame draws, and its outputs."""
+    the phases each frame draws, and its outputs.  `reset` = (frame, stream):
+    before that frame the stream's leaves are set to a fresh fleet state's
+    (the JAX user's reset) and its init pose to its truth at that frame."""
     cfg = jax_cfg()
-    step = j_make_fleet_step(cfg, H, W)
     state = j_init_fleet_state(cfg, H, W, S)
-    ip = jnp.asarray(init_poses(sequences))
+    ip = init_poses(sequences)
     states, phases, outs = [], [], []
     for f in range(F):
+        if reset is not None and f == reset[0]:
+            fresh = j_init_fleet_state(cfg, H, W, S)
+            state = jax.tree.map(lambda a, b: a.at[reset[1]].set(b[reset[1]]), state, fresh)
+            ip = join_poses(sequences, reset[1], f)
         states.append(jax.tree.map(np.array, state))
         phases.append(fleet_phases(states[-1].rng_key, cfg))
         obs = JaxObservation(*(jnp.asarray(a) for a in frame_arrays(sequences, f)))
-        state, out = step(state, obs, ip)
+        state, out = step(state, obs, jnp.asarray(ip))
         outs.append(jax.tree.map(np.array, out))
     return states, phases, outs
+
+
+def join_poses(sequences, stream, f):
+    """The init poses with `stream`'s set to its truth at frame f."""
+    ip = init_poses(sequences)
+    ip[stream] = np.linalg.inv(sequences[stream].ob_in_cam[f])
+    return ip
+
+
+@pytest.fixture(scope="module")
+def jax_fleet(sequences, jax_step):
+    return run_jax_fleet(jax_step, sequences)
 
 
 @pytest.fixture(scope="module")
@@ -162,7 +185,7 @@ def test_fleet_matches_the_jax_fleet(sequences, jax_fleet, port_fleet):
 def test_fleet_step_from_a_jax_fleet_state(sequences, jax_fleet, k):
     j_states, phases, j_out = jax_fleet
     state = fleet_state_from_numpy(j_states[k]._asdict(), "cpu")
-    assert state.frame_count == k
+    assert state.frame_count == (k,) * S
     state, outs = run_port_fleet(sequences, phases, state=state, frames=[k])
     np.testing.assert_array_equal(outs[0].status.numpy(), j_out[k].status)
     for s in range(S):
@@ -183,9 +206,113 @@ def test_fleet_state_round_trip_and_lockstep(jax_fleet):
             np.testing.assert_array_equal(val["rev"], want.rev)
         else:
             np.testing.assert_array_equal(np.atleast_1d(val).view(np.uint8), np.atleast_1d(want).view(np.uint8))
-    uneven = dict(ref, frame_count=np.asarray([2, 2, 3], np.int32))
-    with pytest.raises(ValueError, match="advance together"):
-        fleet_state_from_numpy(uneven, "cpu")
+    # streams at different frames keep their own counts
+    uneven = fleet_state_from_numpy(dict(ref, frame_count=np.asarray([2, 2, 3], np.int32)), "cpu")
+    assert uneven.frame_count == (2, 2, 3)
+    back = fleet_state_to_numpy(uneven)["frame_count"]
+    assert back.dtype == np.int32
+    np.testing.assert_array_equal(back, [2, 2, 3])
+
+
+# ---- a stream that joins the running fleet ---------------------------------
+
+JOIN = (2, 1)  # stream 1 starts again at frame 2
+
+
+@pytest.fixture(scope="module")
+def join_runs(sequences, jax_step, monkeypatch_module):
+    """The JAX fleet and the port's fleet with stream 1 reset at frame 2
+    (JAX: the tree update; port: set_streams), the port given JAX's
+    phases; and the matcher calls of each port frame (pair counts)."""
+    from bundletrack_tpu_torch.matching import pairwise
+
+    jax_res = run_jax_fleet(jax_step, sequences, reset=JOIN)
+    phases = jax_res[1]
+    calls = []
+    matcher = pairwise.fused_mutual_match_pairs
+    monkeypatch_module.setattr(pairwise, "fused_mutual_match_pairs",
+                               lambda *a, **k: calls.append(len(a[4])) or matcher(*a, **k))
+    cfg = port_cfg()
+    step = make_fleet_step(cfg, H, W)
+    state = init_fleet_state(cfg, H, W, S, device="cpu")
+    ip = init_poses(sequences)
+    outs, per_frame, counts = [], [], []
+    for f in range(F):
+        if f == JOIN[0]:
+            state = set_streams(state, [JOIN[1]], init_fleet_state(cfg, H, W, S, device="cpu"))
+            ip = join_poses(sequences, JOIN[1], f)
+        n = len(calls)
+        state, out = step(state, fleet_observation(*frame_arrays(sequences, f), "cpu"), torch.from_numpy(ip),
+                          phases[f])
+        outs.append(out)
+        per_frame.append(calls[n:])
+        counts.append(state.frame_count)
+    return jax_res, outs, per_frame, counts, state
+
+
+@pytest.fixture(scope="module")
+def monkeypatch_module():
+    mp = pytest.MonkeyPatch()
+    yield mp
+    mp.undo()
+
+
+def test_a_joining_stream_matches_the_jax_fleet(sequences, join_runs):
+    """Every stream and frame of the mixed fleet against JAX's; the counts
+    per stream; one matcher call per frame, on the running streams' pairs."""
+    (j_states, _, j_out), outs, per_frame, counts, state = join_runs
+    for f in range(F):
+        np.testing.assert_array_equal(outs[f].status.numpy(), j_out[f].status)
+        for s in range(S):
+            rot, trans = pose_errors(outs[f].ob_in_cam[s].numpy(), j_out[f].ob_in_cam[s])
+            assert rot < SEQ_ROT_TOL and trans < SEQ_TRANS_TOL, (f, s, rot, trans)
+            assert abs(int(outs[f].num_matches[s]) - int(j_out[f].num_matches[s])) <= COUNT_TOL
+            assert abs(int(outs[f].num_ba_edges[s]) - int(j_out[f].num_ba_edges[s])) <= COUNT_TOL
+            rot, trans = pose_errors(outs[f].ob_in_cam[s].numpy(), sequences[s].ob_in_cam[f])
+            assert rot < 1.0 and trans < 0.005, (f, s, rot, trans)
+    # the joining stream's first pose is its init pose, its truth at frame 2
+    np.testing.assert_allclose(outs[JOIN[0]].pose_in_model[JOIN[1]].numpy(),
+                               join_poses(sequences, *JOIN[::-1])[JOIN[1]], atol=1e-6)
+    assert counts == [(1, 1, 1), (2, 2, 2), (3, 1, 3), (4, 2, 4)]
+    assert [int(c) for c in j_states[JOIN[0]].frame_count] == [2, 0, 2]
+    np.testing.assert_array_equal(fleet_state_to_numpy(state)["frame_count"], [4, 2, 4])
+    P = len(np.triu_indices(port_cfg().bundle.max_ba_frames, k=1)[0])
+    assert per_frame == [[], [S * P], [(S - 1) * P], [S * P]]
+
+
+def test_all_new_and_all_running_frames_are_unchanged(join_runs, port_fleet):
+    """Before the join the mixed run is the plain fleet's, bit for bit."""
+    outs = join_runs[1]
+    for f in range(JOIN[0]):
+        for a, b in zip(outs[f], port_fleet[f]):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_a_new_stream_draws_no_phases():
+    """Drawn phases: on the mixed frame the running stream's generator
+    advances and the new stream's is left as it was, as a Tracker's first
+    frame leaves its own; set_streams takes every field of the other state."""
+    seqs = [render_synthetic_sequence(num_frames=3, H=H, W=W, seed=s, orbit_deg_per_frame=3.0) for s in range(2)]
+    cfg = port_cfg()
+    step = make_fleet_step(cfg, H, W)
+    state = init_fleet_state(cfg, H, W, 2, device="cpu")
+    ip = torch.from_numpy(init_poses(seqs))
+    for f in range(2):
+        state, _ = step(state, fleet_observation(*frame_arrays(seqs, f), "cpu"), ip)
+    fresh = init_fleet_state(cfg, H, W, 2, device="cpu", seed=7)
+    joined = set_streams(state, [1], fresh)
+    for name, val in fleet_state_to_numpy(joined).items():
+        want, was = fleet_state_to_numpy(fresh)[name], fleet_state_to_numpy(state)[name]
+        if name == "mappoints":
+            val, want, was = val["obs"], want["obs"], was["obs"]
+        np.testing.assert_array_equal(val[1], want[1])
+        np.testing.assert_array_equal(val[0], was[0])
+    assert joined.frame_count == (2, 0) and joined.rng[1] is fresh.rng[1]
+    before = [g.get_state().clone() for g in joined.rng]
+    joined, out = step(joined, fleet_observation(*frame_arrays(seqs, 2), "cpu"), ip)
+    assert torch.equal(joined.rng[1].get_state(), before[1])
+    assert not torch.equal(joined.rng[0].get_state(), before[0])
+    assert joined.frame_count == (3, 1) and out.status.tolist() == [0, 0]
 
 
 def test_fleet_streams_equal_single_stream_trackers(sequences, jax_fleet, port_fleet):

@@ -75,10 +75,11 @@ class TestCheckpoint:
     def test_fleet_state_roundtrip(self, tmp_path):
         fleet = init_fleet_state(_cfg(), 32, 40, 3, device="cpu", seed=1)
         fleet.prev_pose.add_(torch.randn(fleet.prev_pose.shape))
-        save_tracker_state(str(tmp_path / "f"), fleet._replace(frame_count=2))
+        save_tracker_state(str(tmp_path / "f"), fleet._replace(frame_count=(2, 0, 5)))
         back = restore_tracker_state(str(tmp_path / "f"), init_fleet_state(_cfg(), 32, 40, 3, device="cpu"))
         assert isinstance(back.rng, tuple) and len(back.rng) == 3
-        _assert_tree_equal(back, fleet._replace(frame_count=2))
+        assert back.frame_count == (2, 0, 5)  # each stream's own count
+        _assert_tree_equal(back, fleet._replace(frame_count=(2, 0, 5)))
 
     def test_adam_state_roundtrip_resumes_the_same_steps(self, tmp_path):
         """An optimiser state dict after two steps restores into a fresh

@@ -129,12 +129,24 @@ def tracker_rank(rank, out, cfg, seq, phases, axis_sizes):
          bad_axis=_raises(lambda: Tracker(bad, H, W, device="cpu", mesh=mesh)))
 
 
-def fleet_rank(rank, out, cfg, frames, init_poses, phases, axis_sizes, name):
+def fleet_rank(rank, out, cfg, frames, init_poses, phases, axis_sizes, name, resets=None):
     """frames[f] = (gray, depth, mask, K) of every stream; each rank feeds
-    its block of the streams, and its phases."""
+    its block of the streams, and its phases.  `resets` = {frame: (global
+    streams, init poses [S, 4, 4])}: before that frame those streams are
+    set to a fresh state's (they join the running fleet) and the init poses
+    change.  Also records the collectives each frame issues."""
+    import torch.distributed as dist
+
     from bundletrack_tpu_torch.parallel import distributed as D
     from bundletrack_tpu_torch.parallel import fleet_observation, init_fleet_state, make_fleet_step
+    from bundletrack_tpu_torch.tracker.state import set_streams
 
+    calls = []
+    for op in ("all_reduce", "all_gather", "broadcast"):
+        def counted(*a, _op=getattr(dist, op), **k):
+            calls.append(1)
+            return _op(*a, **k)
+        setattr(dist, op, counted)
     mesh = D.make_mesh(axis_sizes)
     S = init_poses.shape[0]
     H, W = frames[0][0].shape[1:]
@@ -142,13 +154,22 @@ def fleet_rank(rank, out, cfg, frames, init_poses, phases, axis_sizes, name):
     step = make_fleet_step(cfg, H, W, mesh=mesh)
     state = init_fleet_state(cfg, H, W, S, device="cpu", mesh=mesh)
     ip = torch.from_numpy(init_poses[mine])
-    poses, statuses = [], []
+    poses, statuses, collectives = [], [], []
     for f, arrays in enumerate(frames):
+        if resets and f in resets:
+            streams, init_poses = resets[f]
+            local = [s - mine.start for s in streams if mine.start <= s < mine.stop]
+            if local:
+                state = set_streams(state, local, init_fleet_state(cfg, H, W, S, device="cpu", mesh=mesh))
+            ip = torch.from_numpy(init_poses[mine])
         ph = None if phases[f] is None else tuple(p[mine] for p in phases[f])
+        n = len(calls)
         state, o = step(state, fleet_observation(*(a[mine] for a in arrays), "cpu"), ip, ph)
+        collectives.append(len(calls) - n)
         poses.append(o.ob_in_cam.numpy())
         statuses.append(o.status.numpy())
-    save(out, name, rank, streams=(mine.start, mine.stop), poses=np.stack(poses), statuses=np.stack(statuses))
+    save(out, name, rank, streams=(mine.start, mine.stop), poses=np.stack(poses), statuses=np.stack(statuses),
+         collectives=collectives, frame_count=state.frame_count)
 
 
 def hygiene_rank(rank, out):
