@@ -1,6 +1,6 @@
 """The BA matcher at the main path's shapes, on the card.
 
-    python3 -m bundletrack_tpu_torch.matcher_bench [--tree DIR] [--runs 25]
+    python3 -m bundletrack_tpu_torch.matcher_bench [--runs 25]
 
 `ba_table` builds the table that the tracker matches at full width: the
 keypoints of the first K=16 frames of the rendered 480x640 sequence
@@ -16,11 +16,8 @@ one JSON line:
   launch, over 3 launches;
 - the device time of the same kernels inside 3 profiled tracker frames
   after 5 warm-up frames, per frame.
---tree DIR imports `bundletrack_tpu_torch` from another checkout, so that
-one chip call can time two versions in turns.  Where that checkout's
-matcher takes the gathered [P,N,D] sides (it has no
-`fused_mutual_match_pairs`), its launch is timed on the operands its
-wrapper prepares, prepared beforehand.  Needs a CUDA device.
+To time two versions in turns, run each from its own checkout's directory.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,9 +25,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
-import os
 import statistics
-import sys
 
 import numpy as np
 import torch
@@ -68,14 +63,6 @@ def ba_table(seq, cfg, device, lfnet_apply=None):
     return (desc, transform_points(poses, pts), transform_normals(poses, nrm), valid), pairs
 
 
-def _use_tree(tree: str):
-    """Import `bundletrack_tpu_torch` from `tree` from now on."""
-    for name in [m for m in sys.modules if m.split(".")[0] == "bundletrack_tpu_torch"]:
-        if name != __name__:
-            del sys.modules[name]
-    sys.path.insert(0, tree)
-
-
 def _cuda_median_ms(fn, runs: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -107,15 +94,11 @@ def _device_ms_by_kernel(fn, calls: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--tree", default="", help="checkout to import bundletrack_tpu_torch from")
     ap.add_argument("--runs", type=int, default=25)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("matcher_bench: no CUDA device is available")
-    if args.tree:
-        _use_tree(os.path.abspath(args.tree))
 
-    import bundletrack_tpu_torch
     from bundletrack_tpu_torch.cardrun import H, W, card_line, render_main_sequence
     from bundletrack_tpu_torch.config import TrackerConfig
     from bundletrack_tpu_torch.kernels import matching as km
@@ -127,18 +110,8 @@ def main() -> int:
     (desc, world, wnrm, valid), (pi, pj) = ba_table(seq, cfg, torch.device("cuda"))
     fc = cfg.feature_corres
     gates = dict(max_dist=fc.max_dist_no_neighbor, max_normal_deg=fc.max_normal_no_neighbor)
-    if hasattr(km, "fused_mutual_match_pairs"):
-        design = "table form: fused_mutual_match_pairs on the [K,N,D] table"
-        wrapper = lambda: km.fused_mutual_match_pairs(desc, world, wnrm, valid, pi, pj, **gates)  # noqa: E731
-        launch = wrapper
-    else:
-        design = "gathered sides: fused_mutual_match on [P,N,D] copies"
-        pl = pi.long()
-        pr = pj.long()
-        sides = (desc[pl], desc[pr], world[pl], world[pr], wnrm[pl], wnrm[pr], valid[pl], valid[pr])
-        wrapper = lambda: km.fused_mutual_match(*sides, **gates)  # noqa: E731
-        prepared = km._prepare(*sides, gates["max_dist"], gates["max_normal_deg"])
-        launch = lambda: km._launch(*prepared)  # noqa: E731
+    # the table-form wrapper launches the kernel on the table in place
+    wrapper = launch = lambda: km.fused_mutual_match_pairs(desc, world, wnrm, valid, pi, pj, **gates)  # noqa: E731
 
     launch_ms = _cuda_median_ms(launch, args.runs)
     wrapper_ms = _cuda_median_ms(wrapper, args.runs)
@@ -158,8 +131,6 @@ def main() -> int:
     tracker_ms = sum(in_frames[name] for name in per_kernel) / PROFILED
 
     print(f"card: {card}")
-    print(f"tree: {os.path.dirname(os.path.dirname(os.path.abspath(bundletrack_tpu_torch.__file__)))}")
-    print(f"design: {design}")
     print(f"CUDA events, median of {args.runs}: launch {launch_ms:.4f} ms, wrapper {wrapper_ms:.4f} ms")
     for name, ms in sorted(per_launch.items(), key=lambda kv: -kv[1]):
         print(f"  profiler {ms:.4f} ms per launch  {name[:100]}")
@@ -167,7 +138,6 @@ def main() -> int:
           f"{tracker_ms:.4f} ms per tracked frame over {PROFILED} frames")
     print(json.dumps({
         "card": card,
-        "design": design,
         "shapes": dict(K=int(desc.shape[0]), P=int(pi.shape[0]), N=int(desc.shape[1]), D=int(desc.shape[2])),
         "launch_ms_median": launch_ms,
         "wrapper_ms_median": wrapper_ms,

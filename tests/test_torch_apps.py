@@ -11,7 +11,6 @@ import dataclasses
 import os
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -42,6 +41,7 @@ from bundletrack_tpu_torch.frontend import lfnet
 from bundletrack_tpu_torch.frontend.pipeline import extract_frame_features
 from bundletrack_tpu_torch.tracker.bundler import make_track_frame
 from bundletrack_tpu_torch.tracker.driver import Tracker, track_sequence
+from jax_draws import phases_from_key
 
 torch.set_num_threads(2)
 
@@ -176,17 +176,6 @@ def test_descriptor_width_check_is_the_classical_frontends():
                                        device="cpu")
     assert tracker.state.kf_desc.shape[-1] == 128 and tracker.state.prev_desc.shape == (64, 128)
     assert np.all(np.isfinite(poses))
-
-
-def phases_from_key(rng_key, cfg):
-    """The RANSAC phases the JAX step draws from its state's key, as in
-    tests/test_torch_tracker.py."""
-    M = cfg.shapes.max_matches
-    n_rep = -(-cfg.ransac.max_iter // M)
-    K = cfg.bundle.max_ba_frames
-    _, kn, km = jax.random.split(rng_key, 3)
-    draw = lambda k: jax.random.randint(k, (3, n_rep), 0, M, dtype=jnp.int32)  # noqa: E731
-    return np.asarray(draw(kn)), np.asarray(jax.vmap(draw)(jax.random.split(km, K * (K - 1) // 2)))
 
 
 def _jax_lfnet_cfg():

@@ -44,6 +44,7 @@ from bundletrack_tpu_torch.tracker.state import (
     fleet_state_to_numpy,
     set_streams,
 )
+from jax_draws import phases_from_key
 
 torch.set_num_threads(2)
 
@@ -77,17 +78,6 @@ def jax_cfg():
 
 def port_cfg():
     return load_config(dataclasses.asdict(jax_cfg()))
-
-
-def phases_from_key(rng_key, cfg):
-    """The RANSAC phases one stream's JAX step draws from its key:
-    (neighbour [3, n_rep], BA pairs [P, 3, n_rep])."""
-    M = cfg.shapes.max_matches
-    n_rep = -(-cfg.ransac.max_iter // M)
-    K = cfg.bundle.max_ba_frames
-    _, kn, km = jax.random.split(rng_key, 3)
-    draw = lambda k: jax.random.randint(k, (3, n_rep), 0, M, dtype=jnp.int32)
-    return np.asarray(draw(kn)), np.asarray(jax.vmap(draw)(jax.random.split(km, K * (K - 1) // 2)))
 
 
 def fleet_phases(rng_keys, cfg):

@@ -41,6 +41,7 @@ from bundletrack_tpu_torch.frontend import lfnet
 from bundletrack_tpu_torch.ops import masks, resize
 from bundletrack_tpu_torch.parallel import fleet_observation, init_fleet_state, make_fleet_step
 from bundletrack_tpu_torch.tracker.driver import Tracker
+from jax_draws import phases_from_key
 
 torch.set_num_threads(2)
 
@@ -76,17 +77,6 @@ def jax_cfg(**bundle):
         feature_corres=FeatureCorresConfig(backend="pallas_interpret"),
         shapes=ShapeConfig(max_matches=128, image_h=H, image_w=W),
     )
-
-
-def phases_from_key(rng_key, cfg):
-    """The RANSAC phases one stream's JAX step draws from its key:
-    (neighbour [3, n_rep], BA pairs [P, 3, n_rep])."""
-    M = cfg.shapes.max_matches
-    n_rep = -(-cfg.ransac.max_iter // M)
-    K = cfg.bundle.max_ba_frames
-    _, kn, km = jax.random.split(rng_key, 3)
-    draw = lambda k: jax.random.randint(k, (3, n_rep), 0, M, dtype=jnp.int32)  # noqa: E731
-    return np.asarray(draw(kn)), np.asarray(jax.vmap(draw)(jax.random.split(km, K * (K - 1) // 2)))
 
 
 def frame_arrays(seqs, f):

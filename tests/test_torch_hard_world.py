@@ -12,7 +12,6 @@ the same statuses and poses within 1e-5 m and 1e-3 deg.  Small sizes
 import dataclasses
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -49,6 +48,7 @@ from bundletrack_tpu_torch.eval import evaluate_frontend
 from bundletrack_tpu_torch.eval import hard_suite as hs
 from bundletrack_tpu_torch.models import vos
 from bundletrack_tpu_torch.tracker.driver import Tracker
+from jax_draws import phases_from_key
 
 torch.set_num_threads(2)
 
@@ -251,17 +251,6 @@ def test_suites_default_to_the_card(monkeypatch):
 
 
 # ---- a hard pass tracked by both packages ------------------------------------
-
-
-def phases_from_key(rng_key, cfg):
-    """The RANSAC phases the JAX step draws from its state's key:
-    (neighbour [3, n_rep], BA pairs [P, 3, n_rep])."""
-    M = cfg.shapes.max_matches
-    n_rep = -(-cfg.ransac.max_iter // M)
-    K = cfg.bundle.max_ba_frames
-    _, kn, km = jax.random.split(rng_key, 3)
-    draw = lambda k: jax.random.randint(k, (3, n_rep), 0, M, dtype=jnp.int32)  # noqa: E731
-    return np.asarray(draw(kn)), np.asarray(jax.vmap(draw)(jax.random.split(km, K * (K - 1) // 2)))
 
 
 def test_hard_lshape_trajectory_matches_jax():

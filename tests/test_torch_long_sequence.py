@@ -15,12 +15,11 @@ tracker's RANSAC phases, gives the same statuses and the same poses within
 
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from jax_draws import jax_phases, phases_from_key
 from bundletrack_tpu.config import (
     BundleConfig as JBundleConfig,
     FeatureCorresConfig as JFeatureCorresConfig,
@@ -52,31 +51,50 @@ from bundletrack_tpu_torch.tracker.state import STATUS_FAIL, STATUS_NO_BA, STATU
 torch.set_num_threads(2)
 
 
-def phases_from_key(rng_key, cfg):
-    """The RANSAC phases the JAX step draws from its state's key:
-    (neighbour [3, n_rep], BA pairs [P, 3, n_rep])."""
-    M = cfg.shapes.max_matches
-    n_rep = -(-cfg.ransac.max_iter // M)
-    K = cfg.bundle.max_ba_frames
-    _, kn, km = jax.random.split(rng_key, 3)
-    draw = lambda k: jax.random.randint(k, (3, n_rep), 0, M, dtype=jnp.int32)  # noqa: E731
-    return np.asarray(draw(kn)), np.asarray(jax.vmap(draw)(jax.random.split(km, K * (K - 1) // 2)))
-
-
 # ---- tests/test_long_sequence.py ---------------------------------------------
 
 N_FRAMES = 100  # a 400-degree orbit at 4 deg/frame
 OCCLUDED = (45, 46, 47)  # the corner-on viewpoint, ~180 deg
 
 
-def jax_phases(cfg, num_frames: int, seed: int = 0):
-    """The RANSAC phases of every frame that the JAX tracker seeded with
-    `seed` draws: its key splits the same way on every frame, whatever the
-    data, so they need no JAX tracker."""
-    key = jax.random.PRNGKey(seed)
-    for _ in range(num_frames):
-        yield phases_from_key(key, cfg)
-        key = jax.random.split(key, 3)[0]
+def long_run_cfg() -> TrackerConfig:
+    """tests/test_long_sequence.py's configuration."""
+    fcfg = FrontendConfig(kind="lfnet", input_size=192, top_k=256)
+    return TrackerConfig(
+        # erode.diff scaled to 120x160, as the JAX test explains
+        depth_processing=DepthProcessingConfig(erode=ErodeConfig(diff=0.004)),
+        bundle=BundleConfig(max_ba_frames=8),
+        keyframe=KeyframeConfig(pool_size=8, min_rot=5.0),
+        frontend=fcfg,
+        ransac=RansacConfig(max_iter=512),
+        shapes=ShapeConfig(max_matches=128, image_h=120, image_w=160),
+    )
+
+
+def occluded_orbit():
+    """tests/test_long_sequence.py's sequence: the object vanishes for a few frames."""
+    seq = render_synthetic_sequence(num_frames=N_FRAMES, H=120, W=160, orbit_deg_per_frame=4.0)
+    for f in OCCLUDED:
+        seq.mask[f] = False
+        seq.depth[f] = 0.0
+    return seq
+
+
+def long_run_bars(seq, poses, statuses) -> dict:
+    """tests/test_long_sequence.py's bars on one run: FAIL only around the
+    occlusion, the tail's rotation error, the drift over the orbit."""
+    fails = set(np.nonzero(statuses == STATUS_FAIL)[0])
+    ok = statuses != STATUS_FAIL
+    model_pts = (np.random.RandomState(0).rand(500, 3).astype(np.float32) - 0.5) * 0.2
+    auc = adds_auc([poses[f] for f in range(N_FRAMES) if ok[f]],
+                   [seq.ob_in_cam[f] for f in range(N_FRAMES) if ok[f]], model_pts)
+    rot_deg, trans = pose_errors(poses[-1], seq.ob_in_cam[-1])
+    tail_rot = np.mean([pose_errors(poses[f], seq.ob_in_cam[f])[0] for f in range(N_FRAMES - 20, N_FRAMES)])
+    return {
+        "fails_only_there": set(OCCLUDED) <= fails <= set(range(OCCLUDED[0], OCCLUDED[-1] + 18)),
+        "recovers": bool(tail_rot < 3.0),
+        "drift_bounded": bool(auc > 90.0 and rot_deg < 3.0 and trans < 0.015),
+    }
 
 
 @pytest.fixture(scope="module")
@@ -88,22 +106,10 @@ def long_run():
     matches: some seeds of the JAX tracker's own draws never re-acquire,
     and neither does the port's generator at seed 0.  So the mirror runs
     the JAX test's draws."""
-    fcfg = FrontendConfig(kind="lfnet", input_size=192, top_k=256)
-    _, params = load_params_npz(LFNET_CKPT, fcfg)
-    cfg = TrackerConfig(
-        # erode.diff scaled to 120x160, as the JAX test explains
-        depth_processing=DepthProcessingConfig(erode=ErodeConfig(diff=0.004)),
-        bundle=BundleConfig(max_ba_frames=8),
-        keyframe=KeyframeConfig(pool_size=8, min_rot=5.0),
-        frontend=fcfg,
-        ransac=RansacConfig(max_iter=512),
-        shapes=ShapeConfig(max_matches=128, image_h=120, image_w=160),
-    )
-    seq = render_synthetic_sequence(num_frames=N_FRAMES, H=120, W=160, orbit_deg_per_frame=4.0)
-    for f in OCCLUDED:  # the object vanishes for a few frames
-        seq.mask[f] = False
-        seq.depth[f] = 0.0
-    trk = Tracker(cfg, 120, 160, lfnet_apply=make_lfnet_apply(fcfg, params), device="cpu")
+    cfg = long_run_cfg()
+    _, params = load_params_npz(LFNET_CKPT, cfg.frontend)
+    seq = occluded_orbit()
+    trk = Tracker(cfg, 120, 160, lfnet_apply=make_lfnet_apply(cfg.frontend, params), device="cpu")
     init_pose = np.linalg.inv(seq.ob_in_cam[0])
     outs = [trk.process_frame(seq.gray[f], seq.depth[f], seq.mask[f], seq.K, init_pose, phases=ph)
             for f, ph in enumerate(jax_phases(cfg, N_FRAMES))]
@@ -141,6 +147,55 @@ class TestLongSequence:
         rot_deg, trans = pose_errors(poses[-1], seq.ob_in_cam[-1])
         assert rot_deg < 3.0, f"terminal rot drift {rot_deg} deg"
         assert trans < 0.015, f"terminal trans drift {trans} m"
+
+
+# ---- the seed study: re-acquisition over the trackers' own draws --------------
+
+STUDY_SEEDS = range(8)
+
+
+def seed_study_run(seed: int, package: str) -> dict:
+    """tests/test_long_sequence.py's run with the tracker seeded `seed`:
+    the JAX tracker on its own key ("jax"), the port on its own
+    torch.Generator ("port"), or the port on the draws of the JAX tracker
+    seeded `seed` ("port on jax draws"); returns the test's bars on it."""
+    cfg = long_run_cfg()
+    seq = occluded_orbit()
+    init_pose = np.linalg.inv(seq.ob_in_cam[0])
+    if package == "jax":
+        from bundletrack_tpu.config import load_config as jload_config
+        from bundletrack_tpu.frontend import load_params_npz as jload_params_npz
+        from bundletrack_tpu.frontend import make_lfnet_apply as jmake_lfnet_apply
+
+        jcfg = jload_config(dataclasses.asdict(cfg))
+        _, params = jload_params_npz(LFNET_CKPT, jcfg.frontend)
+        trk = JaxTracker(jcfg, 120, 160, jmake_lfnet_apply(jcfg.frontend, params), seed=seed)
+        outs = [trk.process_frame(seq.gray[f], seq.depth[f], seq.mask[f], seq.K, init_pose) for f in range(N_FRAMES)]
+        poses = np.stack([np.asarray(o.ob_in_cam) for o in outs])
+    else:
+        _, params = load_params_npz(LFNET_CKPT, cfg.frontend)
+        trk = Tracker(cfg, 120, 160, lfnet_apply=make_lfnet_apply(cfg.frontend, params), device="cpu", seed=seed)
+        draws = jax_phases(cfg, N_FRAMES, seed) if package == "port on jax draws" else [None] * N_FRAMES
+        outs = [trk.process_frame(seq.gray[f], seq.depth[f], seq.mask[f], seq.K, init_pose, phases=ph)
+                for f, ph in enumerate(draws)]
+        poses = np.stack([o.ob_in_cam.numpy() for o in outs])
+    return long_run_bars(seq, poses, np.asarray([int(o.status) for o in outs]))
+
+
+@pytest.mark.slow
+def test_seed_study_reacquire_rates():
+    """Re-acquisition after the occlusion is chaotic in the RANSAC draws.
+    Over seeds 0-7, each package on its own generator: a seed re-acquires
+    when the run meets every bar of tests/test_long_sequence.py.  The port's
+    rate may fall below JAX's by at most one seed in eight.  The port on
+    the JAX tracker's draws of the same seeds is printed beside them: it
+    tells a tracker that re-acquires less from draws that happened to."""
+    rates = {}
+    for package in ("jax", "port", "port on jax draws"):
+        runs = {s: seed_study_run(s, package) for s in STUDY_SEEDS}
+        rates[package] = [s for s, bars in runs.items() if all(bars.values())]
+        print(f"seed study: {package} re-acquires on seeds {rates[package]} of {list(STUDY_SEEDS)}; {runs}")
+    assert len(rates["port"]) >= len(rates["jax"]) - 1, rates
 
 
 # ---- tests/test_verification_e2e.py ------------------------------------------

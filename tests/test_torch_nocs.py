@@ -40,6 +40,7 @@ from bundletrack_tpu_torch.kernels.matching import _thresholds
 from bundletrack_tpu_torch.ops import masks
 from bundletrack_tpu_torch.ops.numerics import cos_deg_f32, square_f32
 from bundletrack_tpu_torch.tracker.driver import Tracker
+from jax_draws import phases_from_key
 
 torch.set_num_threads(2)
 
@@ -288,17 +289,6 @@ def test_eval_nocs_app(tmp_path, class_name, noise):
 # ---- the tracker on the NOCS preset ------------------------------------------
 
 
-def _phases_from_key(rng_key, cfg):
-    """The RANSAC phases the JAX step draws from its state's key, as in
-    tests/test_torch_tracker.py."""
-    M = cfg.shapes.max_matches
-    n_rep = -(-cfg.ransac.max_iter // M)
-    K = cfg.bundle.max_ba_frames
-    _, kn, km = jax.random.split(rng_key, 3)
-    draw = lambda k: jax.random.randint(k, (3, n_rep), 0, M, dtype=jnp.int32)  # noqa: E731
-    return np.asarray(draw(kn)), np.asarray(jax.vmap(draw)(jax.random.split(km, K * (K - 1) // 2)))
-
-
 def test_nocs_preset_trajectory_matches_jax():
     """Six frames through both trackers with the NOCS preset (loose
     neighbour gates, mask fills); the port takes the JAX step's RANSAC
@@ -319,7 +309,7 @@ def test_nocs_preset_trajectory_matches_jax():
     jtrk = JaxTracker(jcfg, H, W)
     ttrk = Tracker(pcfg, H, W, device="cpu")
     for f in range(6):
-        phases = _phases_from_key(jtrk.state.rng_key, jcfg)
+        phases = phases_from_key(jtrk.state.rng_key, jcfg)
         j = jax.tree.map(np.array, jtrk.process_frame(seq.gray[f], seq.depth[f], seq.mask[f], seq.K, init_pose))
         t = ttrk.process_frame(seq.gray[f], seq.depth[f], seq.mask[f], seq.K, init_pose, phases=phases)
         assert int(t.status) == int(j.status) == 0, f

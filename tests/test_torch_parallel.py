@@ -41,7 +41,7 @@ from bundletrack_tpu_torch.parallel.pair_sharded import BAFrameTable
 from bundletrack_tpu_torch.solver.dense_p2p import compact_frame, stack_frame_dense
 from bundletrack_tpu_torch.tracker.driver import Tracker
 from test_pair_sharded import K_FRAMES, _cfg, _make_problem
-from test_torch_fleet import phases_from_key
+from jax_draws import phases_from_key
 
 torch.set_num_threads(2)
 

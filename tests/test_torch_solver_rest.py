@@ -48,6 +48,7 @@ from bundletrack_tpu_torch.solver import gauss_newton as tgn
 from bundletrack_tpu_torch.solver import pcg as tpcg
 from bundletrack_tpu_torch.solver import residuals as tres
 from bundletrack_tpu_torch.tracker.driver import Tracker
+from jax_draws import phases_from_key
 
 torch.set_num_threads(2)
 
@@ -476,16 +477,6 @@ def _jax_tracker_cfg(**bundle):
     )
 
 
-def _phases_from_key(rng_key, cfg):
-    """The RANSAC phases the JAX step draws from its state's key."""
-    M = cfg.shapes.max_matches
-    n_rep = -(-cfg.ransac.max_iter // M)
-    K = cfg.bundle.max_ba_frames
-    _, kn, km = jax.random.split(rng_key, 3)
-    draw = lambda k: jax.random.randint(k, (3, n_rep), 0, M, dtype=jnp.int32)  # noqa: E731
-    return np.asarray(draw(kn)), np.asarray(jax.vmap(draw)(jax.random.split(km, K * (K - 1) // 2)))
-
-
 @pytest.fixture(scope="module")
 def tracker_seq():
     return render_synthetic_sequence(num_frames=TF, H=TH, W=TW, orbit_deg_per_frame=3.0)
@@ -499,7 +490,7 @@ def _run_both(cfg, seq):
     ttrk = Tracker(load_config(dataclasses.asdict(cfg)), TH, TW, device="cpu")
     outs = []
     for f in range(len(seq.gray)):
-        phases = _phases_from_key(jtrk.state.rng_key, cfg)
+        phases = phases_from_key(jtrk.state.rng_key, cfg)
         j = jax.tree.map(np.array, jtrk.process_frame(seq.gray[f], seq.depth[f], seq.mask[f], seq.K, init_pose))
         t = ttrk.process_frame(seq.gray[f], seq.depth[f], seq.mask[f], seq.K, init_pose, phases=phases)
         outs.append((j, t))
@@ -531,7 +522,7 @@ def test_tracker_colour_weight_changes_nothing(tracker_seq):
     # the same frames without the colour weight, on the same phases
     jtrk = JaxTracker(_jax_tracker_cfg(), TH, TW)
     for f in range(TF):
-        phases = _phases_from_key(jtrk.state.rng_key, _jax_tracker_cfg())
+        phases = phases_from_key(jtrk.state.rng_key, _jax_tracker_cfg())
         j0 = jtrk.process_frame(tracker_seq.gray[f], tracker_seq.depth[f], tracker_seq.mask[f], tracker_seq.K,
                                 init_pose)
         t0 = ttrk.process_frame(tracker_seq.gray[f], tracker_seq.depth[f], tracker_seq.mask[f], tracker_seq.K,

@@ -11,7 +11,6 @@ agree to well under the pose bars.
 import dataclasses
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -36,6 +35,7 @@ from bundletrack_tpu_torch.tracker.state import (
     state_from_numpy,
     state_to_numpy,
 )
+from jax_draws import phases_from_key
 
 torch.set_num_threads(2)
 
@@ -62,17 +62,6 @@ def jax_cfg():
 
 def port_cfg():
     return load_config(dataclasses.asdict(jax_cfg()))
-
-
-def phases_from_key(rng_key, cfg):
-    """The RANSAC phases the JAX step draws from its state's key:
-    (neighbour [3, n_rep], BA pairs [P, 3, n_rep])."""
-    M = cfg.shapes.max_matches
-    n_rep = -(-cfg.ransac.max_iter // M)
-    K = cfg.bundle.max_ba_frames
-    _, kn, km = jax.random.split(rng_key, 3)
-    draw = lambda k: jax.random.randint(k, (3, n_rep), 0, M, dtype=jnp.int32)
-    return np.asarray(draw(kn)), np.asarray(jax.vmap(draw)(jax.random.split(km, K * (K - 1) // 2)))
 
 
 def model_points():
