@@ -43,7 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bundletrack_tpu_torch.device import resolve_device
-from bundletrack_tpu_torch.ops.numerics import clip, flush_denormals
+from bundletrack_tpu_torch.ops.numerics import clip, flush_denormals, round_bf16
 from bundletrack_tpu_torch.ops.resize import resize_bilinear
 from bundletrack_tpu_torch.utils import params_io
 from bundletrack_tpu_torch.utils.flax_layers import (
@@ -117,10 +117,6 @@ def _mm_bf16_f32(a16: torch.Tensor, b16: torch.Tensor) -> torch.Tensor:
     return a16.to(torch.float32) @ b16.to(torch.float32)
 
 
-def _round_bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).to(torch.float32)
-
-
 class Bf16DotF32(torch.autograd.Function):
     """a [n, k] @ b [k, m] with both operands rounded to bf16, accumulated
     and returned in f32 (jax.lax.dot_general with bf16 operands and
@@ -140,8 +136,8 @@ class Bf16DotF32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a16, b16 = ctx.saved_tensors
-        ga = _round_bf16(g @ b16.to(torch.float32).t()) if ctx.needs_input_grad[0] else None
-        gb = _round_bf16(a16.to(torch.float32).t() @ g) if ctx.needs_input_grad[1] else None
+        ga = round_bf16(g @ b16.to(torch.float32).t()) if ctx.needs_input_grad[0] else None
+        gb = round_bf16(a16.to(torch.float32).t() @ g) if ctx.needs_input_grad[1] else None
         return ga, gb
 
 

@@ -58,3 +58,9 @@ def clip(x: torch.Tensor, lo: float | None = None, hi: float | None = None) -> t
 def cos_deg_f32(deg: float) -> float:
     """cos(deg2rad(f32(deg))) evaluated in f32."""
     return float(torch.cos(torch.deg2rad(_t(deg))))
+
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even) and held in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)

@@ -22,7 +22,8 @@
    test suite; the matcher's launch count must equal the number of tracked
    frames.
 4. LF-Net forward alone at 400x400 in bf16 with the shipped weights
-   (checkpoints/lfnet_params.npz), CUDA events, median of 25 after warm-up.
+   (checkpoints/lfnet_params.npz), CUDA events, median of 25 after warm-up;
+   launches, device time, top kernels and bound from the profiler.
 5. CLI phase: writes the same 20 frames as a YCBInEOAT directory, writes a
    reference-format config at the default widths, runs
    `apps.run_tracking --frontend lfnet` on the card, scores the pose files
@@ -94,19 +95,38 @@
    0.05 of JAX's and, on the first 8 propagated frames, within
    VOS_CPU_DIFF_MAX of the port on the CPU; the LF-Net hard suite > 90 on
    cube, cylinder, lshape, fastrot.
-11. FAIL-path phase: 48 frames of the tracker phase's sequence with frames
+11. Eval-suite phase: bench.py's `_frontend_quality`, `_bench_nocs` and
+   `_bench_vos` at their own sizes and seeds, from the inputs the JAX
+   package's run of them on a CPU recorded
+   (eval/jax_eval_suite_cpu.json, rendered by the port in two spawned
+   processes while phase 10 runs; `eval/replay.replay_eval_suite`):
+   repeatability, inlier rate and matches of both frontends (LF-Net at
+   400x400 bf16) on the easy world and the rolling L-shape (240x320, 5
+   frames, gap 1, 3 px); the NOCS protocol on a 48-frame hard cube at
+   480x640 (`nocs_config` with bench.py's bundle settings, every frame on
+   the JAX tracker's seed-0 draws, the init pose perturbed by +-0.02 m from
+   RandomState(0)); VOS on easy32, hard110, hard110 with long_range(110)
+   and occluder48 at 96x96 with the shipped width-96 weights.  Printed
+   beside the JAX file and BENCH_full_r05.json; bars
+   (`eval/replay.eval_suite_missed`): repeatability and inlier rate within
+   0.02 (classical) / 0.04 (LF-Net) of JAX's and matches within 5 %;
+   5deg5cm and IoU25 at least JAX's - 2 and FAIL frames at most JAX's;
+   each clip's mean IoU within 0.01 of JAX's and its min within 0.03;
+   hard110's first 8 propagated masks within VOS_CPU_DIFF_MAX of the port
+   on the CPU; matcher launches = the NOCS pass's tracked frames.
+12. FAIL-path phase: 48 frames of the tracker phase's sequence with frames
    16-18 occluded (mask and depth empty), the default TrackerConfig; bars
    of tests/test_long_sequence.py: the FAIL frames cover 16-18 and lie in
    16..35, mean rotation error over frames 38-47 < 3 deg, terminal
    translation error < 15 mm.
-12. Verify-reject phase: 10 frames with bundle.use_verification and a
+13. Verify-reject phase: 10 frames with bundle.use_verification and a
    1.25 mm threshold (the test's 5 mm at 120x160, scaled to the 480x640
    pixel), which rejects every BA solve; bars of
    tests/test_verification_e2e.py: every frame after the first NO_BA, none
-   FAIL, translation error < 10 mm.  In phases 10-12 the matcher launches
+   FAIL, translation error < 10 mm.  In phases 10-13 the matcher launches
    once per tracked frame, FAIL frames included (the BA pair section runs
    on every frame after the first).
-13. LF-Net fleet phase: phase 9's 8 streams through the fleet step with
+14. LF-Net fleet phase: phase 9's 8 streams through the fleet step with
    the LF-Net frontend (the shipped weights at 400x400 in bf16, one
    batched forward on the 8 masked crops per fleet frame) for 12 frames
    on the default TrackerConfig; every stream must meet the CLI phase's
@@ -118,17 +138,17 @@
    matcher to its plain version on the LF-Net fleet's [128, 512, 256]
    table with 960 pairs (as in phase 9), and gives aggregate frames/s at
    S = 1, 4, 8 (`fleet_bench.fleet_row` on `fleet_bench.lfnet_config`).
-14. PCG tracker phase: phase 3's frames with bundle.solver_backend="pcg",
+15. PCG tracker phase: phase 3's frames with bundle.solver_backend="pcg",
    held to phase 3's bars; frame latency, kernel launches, device ms and
    device-to-host syncs per frame beside the Cholesky solve's.
-15. Photometric and fusion phase: tests/test_photometric.py's in-plane
+16. Photometric and fusion phase: tests/test_photometric.py's in-plane
    shift solve on the card (the 4 mm shift below 2 mm);
    dense_p2p_from_compact with the colour term on a 16-frame pool of the
    rendered frames at the tracker's low-res size (120x160, C = 4096, 120
    pairs), card against CPU within DENSE_CARD_RTOL, timed beside the
    depth term alone and the compaction; fuse_depth_frames on 16 480x640
    depth maps, card against CPU within FUSION_ATOL_M, timed.
-16. Train LF-Net phase, at the shipped widths (the default FrontendConfig,
+17. Train LF-Net phase, at the shipped widths (the default FrontendConfig,
    f32): one make_lfnet_train_step from the same weights on the same batch
    on the card and on the CPU (loss within TRAIN_CARD_LOSS_RTOL, every
    gradient's cosine >= TRAIN_CARD_GRAD_COS_MIN, the score convs' biases,
@@ -141,7 +161,7 @@
    deterministic algorithms); the step timed at the serving shape
    (400x400, top-k 512, batch 8): ms per step by CUDA events, peak memory,
    launches and device time per step from the profiler.
-17. Train VOS phase, at the shipped width 96 warm-started from
+18. Train VOS phase, at the shipped width 96 warm-started from
    checkpoints/vos_params.npz: card against CPU for one plain and one
    rollout step (the same bars); `apps.train_vos.main` at its defaults
    (96x96, batch 4, clip 4) for 20 plain and 20 --rollout steps, every
@@ -149,7 +169,7 @@
    run's weights on phase 6's frames (mean and min IoU bars
    VOS_TRAINED_*); plain and rollout steps timed at 96x96 and 256x256.
    The training phases launch the matcher 0 times.
-18. Mesh phase: 2 ranks spawned with torch.multiprocessing (a file://
+19. Mesh phase: 2 ranks spawned with torch.multiprocessing (a file://
    rendezvous, a collective timeout; the kernel was built in step 1, so
    the ranks only load it) share the card over gloo, asked for
    explicitly: the default tracker with bundle.ba_mesh_axis="pairs" on
@@ -160,15 +180,15 @@
    pairs=2, within the fleet's bars of phase 9's poses, and the join run
    over "stream" (rank 1's streams join late) within them of the one-rank
    join run; LF-Net at
-   dp=2,tp=1 and dp=1,tp=2 (phase 16's batch) and VOS at dp=2 (phase 17's
+   dp=2,tp=1 and dp=1,tp=2 (phase 17's batch) and VOS at dp=2 (phase 18's
    clip), one step against the one-device step on the card (the training
    bars).  Logs ms per tracked frame, the fleets' aggregate frames/s, ms
    per training step and the GN all-reduce's ms per iteration: with two
    host processes on one card, a measure of the collectives' cost, not of
    scaling.  With two or more cards it runs again over NCCL, one rank per
    card (world 2 or 4).  A rank's failure fails the run.
-19. Prints one JSON line describing every kernel (the matcher's launches
-   summed over phases 3, 5, 7-14 and 18, every rank), the card's line, and
+20. Prints one JSON line describing every kernel (the matcher's launches
+   summed over phases 3, 5, 7-15 and 19, every rank), the card's line, and
    as its last line {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and the last line is not
@@ -177,12 +197,17 @@ printed.  Without a CUDA device, or without the package beside it, it fails.
     python3 chip_smoke.py --mesh-only
 
 runs step 1, the one-rank tracker, fleet and join runs of phases 3 and 9
-and phase 18 alone: the call to make on a machine with several cards.
+and phase 19 alone: the call to make on a machine with several cards.
 
     python3 chip_smoke.py --long-only
 
 runs step 1 and phase 10's long-horizon suite alone (rendering the hard
 passes it needs for the LF-Net hard-suite row), with the same last line.
+
+    python3 chip_smoke.py --eval-only
+
+runs step 1 and phase 11's eval suite alone (rendering its sequences
+itself), with the same last line.
 """
 
 from __future__ import annotations
@@ -258,6 +283,15 @@ LONG_BARRED_AUC, LONG_AUC_SLACK, LONG_FAIL_SLACK = 90.0, 3.0, 2
 # LONG_VOS_CPU_FRAMES propagated frames the card against the port on the CPU
 # within VOS_CPU_DIFF_MAX, the VOS phase's bar
 LONG_VOS_IOU_SLACK, LONG_VOS_CPU_FRAMES = 0.05, 8
+
+# bench.py's frontend quality, NOCS protocol with a noisy initial pose and
+# VOS clips, from the JAX package's run of them on a CPU with the inputs it
+# recorded (bundletrack_tpu_torch/eval/jax_eval_suite_cpu.json); the bars
+# are eval/replay.py's (FQ_*, NOCS_SLACK, VOS_*).  On the first
+# EVAL_VOS_CPU_FRAMES propagated frames of this clip the card's masks
+# against the port on the CPU within VOS_CPU_DIFF_MAX.
+EVAL_VOS_CPU_CLIP, EVAL_VOS_CPU_FRAMES = "hard110", 8
+EVAL_RENDER_PROCESSES = 2  # beside the long suite's render pool: the 48-frame NOCS pass in one, the rest in the other
 
 FLEET_STREAMS, FLEET_FRAMES = 8, 12
 # stream 0 of the fleet against a single-stream Tracker with the same
@@ -593,22 +627,23 @@ def tracker_phase(seq, cfg, card: str, label: str = "tracker") -> tuple:
 
 def lfnet_forward_phase(seq, lf_cfg, lfnet, card: str) -> float:
     """The LF-Net forward alone on the masked ROI crop of frame 0 at
-    input_size (400x400), CUDA events, median of 25 runs after warm-up."""
+    input_size (400x400): CUDA events, median of 25 runs after warm-up;
+    launches, device time and the largest kernels from the profiler; its
+    bound (profile_step.lfnet_forward_report)."""
     import torch
 
-    from bundletrack_tpu_torch.cardrun import TIMED_RUNS, cuda_median_ms, masked_crop
+    from bundletrack_tpu_torch.cardrun import masked_crop
+    from bundletrack_tpu_torch.profile_step import lfnet_forward_report
 
     S = lf_cfg.frontend.input_size
-    crop = masked_crop(seq, 0, S)
-    out = lfnet(crop[..., None])
+    out = lfnet(masked_crop(seq, 0, S)[..., None])
     n_valid = int(out.valid.sum())
     if not (bool(torch.isfinite(out.desc).all()) and n_valid > 0):
         raise AssertionError("lfnet forward: non-finite descriptors or no valid keypoint")
-    ms = cuda_median_ms(lambda: lfnet(crop[..., None]))
-    dtype = "bf16" if lf_cfg.frontend.bf16 else "f32"
-    log(f"lfnet forward at {S}x{S} {dtype}, top_k {lf_cfg.frontend.top_k}: median {ms:.4f} ms "
-        f"over {TIMED_RUNS} runs, {n_valid} valid keypoints [{card}]")
-    return ms
+    rep = lfnet_forward_report(lfnet, lf_cfg, seq, card)
+    log(f"lfnet forward at {S}x{S}, top_k {lf_cfg.frontend.top_k}, {n_valid} valid keypoints: {rep['median_ms']:.4f} ms "
+        f"(CUDA events), {rep['device_ms_per_forward']:.4f} device ms, {rep['launches_per_forward']:.0f} launches [{card}]")
+    return rep["median_ms"]
 
 
 def write_config(root: str, data_dir: str, out_dir: str, mask_dir: str = "") -> str:
@@ -1751,6 +1786,107 @@ def long_suite_phase(hard_passes_16, card: str, phase_s: dict) -> int:
     return launches
 
 
+# ---- bench.py's frontend quality, noisy-init NOCS and VOS clips ------------------
+
+
+def eval_references() -> tuple:
+    """The JAX package's run of bench.py's three evaluations on a CPU, with
+    the inputs it recorded (the committed JSON), and BENCH_full_r05.json's
+    figures for them (a TPU run of an older tree, accuracy only)."""
+    from bundletrack_tpu_torch.eval import replay
+
+    with open(os.path.join(os.path.dirname(replay.__file__), "jax_eval_suite_cpu.json")) as f:
+        ref = json.load(f)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "BENCH_full_r05.json")) as f:
+        r05 = json.load(f)["extra"]
+    return ref, r05
+
+
+def submit_eval_renders(pool, inputs) -> dict:
+    """Every sequence the eval suite's inputs render, submitted to `pool`:
+    {spec_key: future}."""
+    from bundletrack_tpu_torch.eval.replay import eval_suite_specs, render_spec
+
+    return {key: pool.submit(render_spec, spec) for key, spec in eval_suite_specs(inputs).items()}
+
+
+def eval_suite_phase(card: str, phase_s: dict, seqs=None) -> int:
+    """bench.py's `_frontend_quality`, `_bench_nocs` and `_bench_vos` on the
+    card at their own sizes and seeds, from the inputs the JAX package's run
+    recorded (`replay.replay_eval_suite`; the NOCS pass on the JAX tracker's
+    seed-0 draws), held to that run's figures (`replay.eval_suite_missed`)
+    and printed beside them and r05's; the hard110 clip's first
+    EVAL_VOS_CPU_FRAMES propagated masks against the port on the CPU.
+    `seqs` maps spec keys to sequences rendered already.  Returns the
+    matcher launches."""
+    from bundletrack_tpu_torch.apps.run_vos import VOS_CKPT
+    from bundletrack_tpu_torch.cardrun import WARMUP_FRAMES, shipped_lfnet, steady_median
+    from bundletrack_tpu_torch.config import TrackerConfig, load_config
+    from bundletrack_tpu_torch.eval import replay
+    from bundletrack_tpu_torch.eval.vos_eval import evaluate_vos
+    from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.models.vos import load_vos_npz
+
+    ref, r05 = eval_references()
+    inputs = ref["inputs"]
+    if seqs is None:
+        t0 = time.perf_counter()
+        specs = replay.eval_suite_specs(inputs)
+        with ProcessPoolExecutor(max_workers=len(specs), mp_context=multiprocessing.get_context("spawn")) as pool:
+            seqs = {key: f.result() for key, f in submit_eval_renders(pool, inputs).items()}
+        phase_s["eval suite render"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lf_cfg = TrackerConfig().replace(frontend=load_config({"frontend": inputs["frontend_quality"]["configs"]["lfnet"]}).frontend)
+    lfnet = shipped_lfnet(lf_cfg)
+    vos_model, _ = load_vos_npz(VOS_CKPT)
+    nocs_cfg = load_config(inputs["nocs"]["tracker"])
+    frames = inputs["nocs"]["render"]["kwargs"]["num_frames"]
+    km.launches = 0  # count only this phase's launches
+    got = replay.replay_eval_suite(inputs, replay.load_jax_draws(nocs_cfg, frames), lfnet_apply=lfnet,
+                                   vos_model=vos_model, seqs=seqs, device="cuda")
+    launches = km.launches
+    missed, lines = replay.eval_suite_missed(got, ref)
+    for line in lines:
+        log(f"eval suite: {line}")
+    for world, row in got["frontend_quality"].items():
+        for frontend, g in row.items():
+            w, r = ref["frontend_quality"][world][frontend], r05["frontend_quality"][world][frontend]
+            log(f"eval suite: frontend {world}/{frontend}: repeatability / inlier rate / n_matches card "
+                f"{g['repeatability']:.4f} / {g['inlier_rate']:.4f} / {g['n_matches']:.2f}, JAX CPU "
+                f"{w['repeatability']:.4f} / {w['inlier_rate']:.4f} / {w['n_matches']:.2f}, r05 "
+                f"{r['repeatability']:.4f} / {r['inlier_rate']:.4f} / {r['n_matches']:.2f} [{card}]")
+    run = got["nocs_run"]
+    st = "".join(str(int(x)) for x in run.statuses)
+    log(f"eval suite: nocs (48-frame hard cube at 480x640, noisy init, the JAX tracker's draws): card "
+        f"{json.dumps(got['nocs'])}; JAX CPU {json.dumps({k: v for k, v in ref['nocs'].items() if k != 'statuses'})}; "
+        f"r05 {json.dumps(r05['nocs'])}")
+    log(f"eval suite: nocs statuses card {st}, {sum(a != b for a, b in zip(st, ref['nocs']['statuses']))} frames "
+        f"differ from JAX's; median frame {steady_median(list(run.frame_ms)):.2f} ms over frames "
+        f"{WARMUP_FRAMES}..{frames - 1}; matcher launches {launches} for {frames - 1} tracked frames [{card}]")
+    if launches != frames - 1:
+        missed.append(f"nocs: matcher launches {launches} != tracked frames {frames - 1}")
+    for clip in ref["vos"]:
+        if clip != "width":
+            g, w, r = got["vos"][clip], ref["vos"][clip], r05["vos"][clip]
+            log(f"eval suite: vos {clip}: mean / min / tail10 IoU card {g['mean_iou']:.4f} / {g['min_iou']:.4f} / "
+                f"{g['tail10_mean']:.4f}, JAX CPU {w['mean_iou']:.4f} / {w['min_iou']:.4f} / {w['tail10_mean']:.4f}, "
+                f"r05 {json.dumps(r)} [{card}]")
+    clip = inputs["vos"]["clips"][EVAL_VOS_CPU_CLIP]
+    n = EVAL_VOS_CPU_FRAMES + 1
+    cpu = evaluate_vos(vos_model, load_config({"segmentation": clip["segmentation"]}).segmentation,
+                       seqs[replay.spec_key(clip["render"])], num_frames=n, device="cpu")["masks"]
+    card_masks = got["vos_runs"][EVAL_VOS_CPU_CLIP]["masks"]
+    shares = [float((c != m).mean()) for c, m in zip(cpu, card_masks)]
+    log(f"eval suite: vos {EVAL_VOS_CPU_CLIP} card vs CPU on frames 1-{n - 1}: masks differ on "
+        + " ".join(f"{100 * x:.4f}" for x in shares) + " % of pixels")
+    if max(shares) > VOS_CPU_DIFF_MAX:
+        missed.append(f"vos {EVAL_VOS_CPU_CLIP}: card and CPU masks differ on {100 * max(shares):.3f} % of pixels")
+    phase_s["eval suite"] = time.perf_counter() - t0
+    if missed:
+        raise AssertionError("eval suite: bars missed: " + "; ".join(missed))
+    return launches
+
+
 # ---- training -----------------------------------------------------------------
 
 
@@ -2387,8 +2523,8 @@ def mesh_only(seq, cfg, card: str) -> None:
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--mesh-only"], ["--long-only"]):
-        print("usage: chip_smoke.py [--mesh-only | --long-only]", file=sys.stderr)
+    if argv not in ([], ["--mesh-only"], ["--long-only"], ["--eval-only"]):
+        print("usage: chip_smoke.py [--mesh-only | --long-only | --eval-only]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2413,13 +2549,16 @@ def main(argv) -> int:
     lf_cfg = with_lfnet(cfg)
     lfnet = shipped_lfnet(lf_cfg)
 
-    if argv in (["--mesh-only"], ["--long-only"]):
+    if argv in (["--mesh-only"], ["--long-only"], ["--eval-only"]):
         if argv == ["--mesh-only"]:
             mesh_only(seq, cfg, card)
         else:
             phase_s = {}
-            launches = long_suite_phase(None, card, phase_s)
-            log(f"matcher launches: long suite {launches}")
+            if argv == ["--long-only"]:
+                launches = {"long suite": long_suite_phase(None, card, phase_s)}
+            else:
+                launches = {"eval suite": eval_suite_phase(card, phase_s)}
+            log("matcher launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
             log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
                 + f"; whole script {time.perf_counter() - t_main:.1f}")
         log(card)
@@ -2455,8 +2594,17 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     hard_launches = hard_world_phase(passes, card)
     phase_s["hard world"] = time.perf_counter() - t0
-    long_launches = long_suite_phase(passes, card, phase_s)
-    del passes
+    # the eval suite's sequences render in processes of their own while the
+    # long suite runs
+    with ProcessPoolExecutor(max_workers=EVAL_RENDER_PROCESSES, mp_context=multiprocessing.get_context("spawn")) as pool:
+        eval_futures = submit_eval_renders(pool, eval_references()[0]["inputs"])
+        long_launches = long_suite_phase(passes, card, phase_s)
+        del passes
+        t0 = time.perf_counter()
+        eval_seqs = {key: f.result() for key, f in eval_futures.items()}
+        phase_s["eval suite render (left after the long suite)"] = time.perf_counter() - t0
+    eval_launches = eval_suite_phase(card, phase_s, eval_seqs)
+    del eval_seqs
     t0 = time.perf_counter()
     fail_launches = fail_path_phase(fail_seq, card)
     phase_s["fail path"] = time.perf_counter() - t0
@@ -2489,6 +2637,7 @@ def main(argv) -> int:
         "classical tracker phase": classical_launches, "lfnet CLI phase (filter 0 and filtered PNGs)": cli_launches,
         "VOS chain": vos_chain_launches, "NOCS chain": nocs_launches, "fleet": fleet_launches, "join": join_launches,
         "hard world": hard_launches, "long suite (with the lfnet hard suite)": long_launches,
+        "eval suite (nocs)": eval_launches,
         "fail path": fail_launches, "verify reject": verify_launches,
         "lfnet fleet": lfnet_fleet_launches, "pcg tracker": pcg_launches, "mesh (all ranks)": mesh_launches,
     }

@@ -300,3 +300,26 @@ def test_lfnet_forward_bf16_matches_jax(crops):
     desc_err = np.concatenate(desc_err)
     assert found >= BF16_MIN_SAME_KPTS * total, (found, total)
     assert desc_err.max() < BF16_DESC_MAX and np.median(desc_err) < BF16_DESC_MEDIAN, desc_err
+
+
+# ---- frontend quality on the shipped weights -----------------------------------------
+
+
+def test_lfnet_evaluate_frontend_matches_jax():
+    """bench.py's frontend-quality measure with the LF-Net frontend (bf16, on
+    the shipped weights) at a small size: 3 rendered 120x160 frames, input
+    96.  Repeatability and inlier rate within the card run's LF-Net bar of
+    the jitted JAX evaluation's (eval/replay.FQ_RATE_SLACK)."""
+    from bundletrack_tpu.eval.frontend_eval import evaluate_frontend as jevaluate_frontend
+    from bundletrack_tpu.frontend.lfnet import make_lfnet_apply as jmake_lfnet_apply
+    from bundletrack_tpu_torch.eval.frontend_eval import evaluate_frontend
+    from bundletrack_tpu_torch.eval.replay import FQ_RATE_SLACK
+
+    seq = render_synthetic_sequence(num_frames=3, H=120, W=160, orbit_deg_per_frame=4.0, seed=123)
+    jcfg = JaxFrontendConfig(kind="lfnet", input_size=96, top_k=64)
+    cfg = FrontendConfig(kind="lfnet", input_size=96, top_k=64)
+    want = jevaluate_frontend(seq, jcfg, lfnet_apply=jmake_lfnet_apply(jcfg, jax_load_params_npz(CKPT, jcfg)[1]))
+    got = evaluate_frontend(seq, cfg, lfnet_apply=lfnet.make_lfnet_apply(cfg, lfnet.load_params_npz(CKPT, cfg)[1]),
+                            device="cpu")
+    for metric in ("repeatability", "inlier_rate"):
+        assert abs(got[metric] - want[metric]) <= FQ_RATE_SLACK["lfnet"], (metric, got, want)

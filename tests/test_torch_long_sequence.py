@@ -154,11 +154,12 @@ class TestLongSequence:
 STUDY_SEEDS = range(8)
 
 
-def seed_study_run(seed: int, package: str) -> dict:
+def seed_study_run(seed: int, package: str) -> tuple:
     """tests/test_long_sequence.py's run with the tracker seeded `seed`:
     the JAX tracker on its own key ("jax"), the port on its own
     torch.Generator ("port"), or the port on the draws of the JAX tracker
-    seeded `seed` ("port on jax draws"); returns the test's bars on it."""
+    seeded `seed` ("port on jax draws"); returns (the test's bars on it,
+    the poses)."""
     cfg = long_run_cfg()
     seq = occluded_orbit()
     init_pose = np.linalg.inv(seq.ob_in_cam[0])
@@ -179,7 +180,22 @@ def seed_study_run(seed: int, package: str) -> dict:
         outs = [trk.process_frame(seq.gray[f], seq.depth[f], seq.mask[f], seq.K, init_pose, phases=ph)
                 for f, ph in enumerate(draws)]
         poses = np.stack([o.ob_in_cam.numpy() for o in outs])
-    return long_run_bars(seq, poses, np.asarray([int(o.status) for o in outs]))
+    return long_run_bars(seq, poses, np.asarray([int(o.status) for o in outs])), poses
+
+
+# two runs on the same draws part at the first frame whose poses differ by
+# more than the tracker's pose bar (tests/test_tracker_synthetic.py)
+PART_ROT_DEG, PART_TRANS_M = 1.0, 0.005
+
+
+def where_runs_part(poses_a, poses_b) -> tuple:
+    """(rotation difference at frame 1 in degrees, the first frame where the
+    two runs differ by more than PART_*, or None)."""
+    from bundletrack_tpu_torch.eval.metrics import pose_errors
+
+    diffs = [pose_errors(a, b) for a, b in zip(poses_a, poses_b)]
+    parted = [f for f, (rot, trans) in enumerate(diffs) if rot > PART_ROT_DEG or trans > PART_TRANS_M]
+    return diffs[1][0], (parted[0] if parted else None)
 
 
 @pytest.mark.slow
@@ -190,11 +206,17 @@ def test_seed_study_reacquire_rates():
     rate may fall below JAX's by at most one seed in eight.  The port on
     the JAX tracker's draws of the same seeds is printed beside them: it
     tells a tracker that re-acquires less from draws that happened to."""
-    rates = {}
+    rates, poses = {}, {}
     for package in ("jax", "port", "port on jax draws"):
         runs = {s: seed_study_run(s, package) for s in STUDY_SEEDS}
+        poses[package] = {s: p for s, (_, p) in runs.items()}
+        runs = {s: bars for s, (bars, _) in runs.items()}
         rates[package] = [s for s, bars in runs.items() if all(bars.values())]
         print(f"seed study: {package} re-acquires on seeds {rates[package]} of {list(STUDY_SEEDS)}; {runs}")
+    for s in STUDY_SEEDS:
+        rot1, parted = where_runs_part(poses["jax"][s], poses["port on jax draws"][s])
+        print(f"seed study: seed {s}, JAX and the port on its draws: {rot1:.4f} deg apart at frame 1, "
+              f"part at frame {parted} (first frame beyond {PART_ROT_DEG} deg or {PART_TRANS_M} m)")
     assert len(rates["port"]) >= len(rates["jax"]) - 1, rates
 
 

@@ -58,6 +58,12 @@ torch.set_num_threads(2)
 
 RANK_TIMEOUT_S, JOIN_S = 120.0, 480.0  # a collective's wait; the spawn's whole budget
 LFNET_MESH = {"data": 2, "model": 2}
+# the tensor-parallel descriptor against the whole one on each rank: f32
+# sums in another order; in bf16 each rank's partial product of fc2 is
+# rounded before the sum, so an entry may land a bf16 ulp away (~2e-3 on a
+# unit vector's entries); measured 8.9e-8 (f32) and 2.5e-3 (bf16) on the
+# patches below
+TP_FORWARD_ATOL = {"f32": 1e-5, "bf16": 5e-3}
 VOS_WIDTH, VOS_OUT_DIM, VOS_HW = 8, 16, (32, 32)
 BATCHES = {"identity-warp": _identity_batch, "hard-world-roi": _hard_batch}
 
@@ -99,6 +105,10 @@ def runs(tmp_path_factory):
         res[f"vos_{rollout}"] = ({k: float(v) for k, v in metrics.items()}, _flat(grads))
         jobs2.append(("vos_train_rank", (vsd, {"clips": clips, "labels": labels}, rollout, VOS_WIDTH,
                                          VOS_OUT_DIM)))
+
+    patches = np.random.RandomState(3).rand(24, 1, 32, 32).astype(np.float32)
+    for bf16 in (False, True):
+        jobs2.append(("lfnet_tp_forward_rank", (FrontendConfig(**{**SMALL, "bf16": bf16}), sd, patches)))
 
     lf_ckpt, vos_ckpt = f"{out}/lfnet_ckpt", f"{out}/vos_ckpt"
     small = CLI_ARGS[:-4]  # the small widths, without --mesh none --device cpu
@@ -160,6 +170,19 @@ def test_dp_tp_lfnet_step_matches_jax(runs, name):
         else:
             assert float(np.abs(g - want).max()) <= GRAD_TOL * float(np.abs(want).max()), (
                 n, float(np.abs(g - want).max()), float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_descriptor_forward_matches_the_unsharded_one(runs, dtype):
+    """The descriptor with its MLP split over 2 "model" ranks computes the
+    unsharded descriptor: in f32 up to summation order, in bf16 up to the
+    rounding of fc2's partial products."""
+    out = runs[0]
+    got = ranks.load(out, f"lfnet_tp_forward_{dtype}", 2, job="lfnet_tp_forward_rank")
+    _assert_no_jax(got)
+    for r in got:
+        assert torch.equal(r["sharded"], got[0]["sharded"])
+        np.testing.assert_allclose(r["sharded"].numpy(), r["whole"].numpy(), atol=TP_FORWARD_ATOL[dtype])
 
 
 @pytest.mark.parametrize("rollout", [False, True], ids=["vos_loss", "vos_rollout_loss"])

@@ -232,6 +232,22 @@ def lfnet_train_rank(rank, out, cfg, sd, batch, axis_sizes, name):
          adam_shapes={n: tuple(opt.state[p]["exp_avg"].shape) for n, p in model.named_parameters()})
 
 
+def lfnet_tp_forward_rank(rank, out, cfg, sd, patches):
+    """The descriptor on `patches`, whole, then with its MLP split over a
+    "model" axis of 2 ranks (`shard_lfnet_`)."""
+    from bundletrack_tpu_torch.frontend.lfnet import LFNet, shard_lfnet_
+    from bundletrack_tpu_torch.parallel import distributed as D
+
+    model = LFNet(cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    x = torch.from_numpy(patches)
+    with torch.no_grad():
+        whole = model.describe_patches(x)
+        shard_lfnet_(model, D.axis_group(D.make_mesh({"model": 2}), "model"))
+        sharded = model.describe_patches(x)
+    save(out, f"lfnet_tp_forward_{'bf16' if cfg.bf16 else 'f32'}", rank, whole=whole, sharded=sharded)
+
+
 def vos_train_rank(rank, out, sd, batch, rollout, width, out_dim):
     from bundletrack_tpu_torch.models import VOSTrainBatch, make_adam
     from bundletrack_tpu_torch.models.vos import VOSNet
