@@ -6,7 +6,9 @@ threefry.  The JAX tracker splits its key the same way on every frame,
 whatever the data, so its draws depend only on its seed and on
 (max_matches, ransac.max_iter, bundle.max_ba_frames): `jax_draws_seed0.npz`
 holds those of a JAX `Tracker` seeded with 0 at bench.py's (256, 2000, 16)
-for 128 frames, as uint8 (every phase lies in [0, 256)).  With them the
+for 128 frames, as uint8 (every phase lies in [0, 256)), and
+`jax_draws_seeds.npz` those of the trackers seeded 1-7 (the LF-Net orbit on
+VOS masks is barred on its mean over the eight draw sets).  With them the
 port tracks a pass on the JAX tracker's draws, and its reports can be held
 to the JAX package's figures pass for pass.
 
@@ -37,17 +39,32 @@ import numpy as np
 
 from bundletrack_tpu_torch.eval.hard_suite import LONG_PASS_SHAPES, generate_vos_masks, pass_report
 
-DRAWS_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)), "jax_draws_seed0.npz")
+_EVAL_DIR = os.path.dirname(os.path.abspath(__file__))
+DRAWS_NPZ = os.path.join(_EVAL_DIR, "jax_draws_seed0.npz")
+SEED_DRAWS_NPZ = os.path.join(_EVAL_DIR, "jax_draws_seeds.npz")  # seeds 1-7, stacked
 
 
-def load_jax_draws(cfg, num_frames: int, path: str = DRAWS_NPZ) -> List[Tuple[np.ndarray, np.ndarray]]:
-    """The JAX tracker's phases for frames 0..num_frames-1, each frame's
-    (neighbour [3, n_rep], BA pairs [P, 3, n_rep]) as int64, the form
-    `Tracker.process_frame(..., phases=)` takes.  Raises if the file was
-    drawn for another (M, max_iter, K), holds fewer frames or other shapes."""
+def draw_seeds() -> List[int]:
+    """The seeds whose JAX draws are committed: 0 and those of SEED_DRAWS_NPZ."""
+    with np.load(SEED_DRAWS_NPZ) as data:
+        return [0] + [int(s) for s in data["seeds"]]
+
+
+def load_jax_draws(cfg, num_frames: int, seed: int = 0) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """The phases of the JAX tracker seeded with `seed` for frames
+    0..num_frames-1, each frame's (neighbour [3, n_rep], BA pairs [P, 3,
+    n_rep]) as int64, the form `Tracker.process_frame(..., phases=)` takes.
+    Raises if the file was drawn for another (M, max_iter, K), holds fewer
+    frames, other shapes or not that seed."""
+    path = DRAWS_NPZ if seed == 0 else SEED_DRAWS_NPZ
     with np.load(path) as data:
         neighbour, pairs = data["neighbour"], data["pairs"]
         drawn_for = tuple(int(data[k]) for k in ("max_matches", "max_iter", "max_ba_frames"))
+        if seed != 0:
+            seeds = [int(s) for s in data["seeds"]]
+            if seed not in seeds:
+                raise ValueError(f"no draws for seed {seed}: {path} holds seeds {seeds}")
+            neighbour, pairs = neighbour[seeds.index(seed)], pairs[seeds.index(seed)]
     M, K = cfg.shapes.max_matches, cfg.bundle.max_ba_frames
     want = (M, cfg.ransac.max_iter, K)
     if drawn_for != want:

@@ -19,12 +19,27 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from bundletrack_tpu_torch.ops.numerics import clip, flush_denormals
+from bundletrack_tpu_torch.kernels.norm_sums import xla_order_sums
+from bundletrack_tpu_torch.ops.numerics import clip, flush_denormals, reciprocal_f32
 from bundletrack_tpu_torch.ops.topk import topk_stable
 
 
-def instance_norm(x: torch.Tensor, dims=(2, 3), eps: float = 1e-3) -> torch.Tensor:
-    """Per-sample, per-channel normalization with the population variance."""
+def instance_norm(x: torch.Tensor, dims=(2, 3), eps: float = 1e-3, xla_order: bool = False) -> torch.Tensor:
+    """Per-sample, per-channel normalization with the population variance.
+    With `xla_order` (the bf16 LF-Net's photo and score maps, inference
+    only) the mean and the variance are summed as jax.jit sums them on the CPU
+    (kernels/norm_sums.py): mean = sum * (1/n), variance = the sum of
+    (x - mean)^2 times 1/n."""
+    if xla_order:
+        if tuple(dims) != (2, 3):
+            raise ValueError(f"instance_norm: XLA's order is over dims (2, 3), not {dims}")
+        B, C, H, W = x.shape
+        inv = reciprocal_f32(H * W)
+        s, _ = xla_order_sums(x, per_channel=True)
+        mu = s * inv
+        _, s2 = xla_order_sums(x, per_channel=True, shift=mu)
+        mu, var = mu.view(B, C, 1, 1), (s2 * inv).view(B, C, 1, 1)
+        return (x - mu) / torch.sqrt(var + eps)
     mu = torch.mean(x, dim=dims, keepdim=True)
     var = torch.mean((x - mu) ** 2, dim=dims, keepdim=True)
     return (x - mu) / torch.sqrt(var + eps)

@@ -10,12 +10,24 @@ parameters; `lfnet_state_dict_from_flax` carries them over.
 What follows the Flax module exactly, because the checkpoint depends on it:
 - every conv pads "SAME" and every norm is Flax's GroupNorm(1)
   (utils/flax_layers.py);
-- with `bf16` the conv path runs in bf16 (inputs, kernels and bias cast;
-  the bias added after the product, in bf16), the norms in f32, the
-  residual add in bf16, the per-scale resize in bf16, the score maps back
-  in f32, and the orientation conv in f32;
 - the descriptor flattens its [C, 4, 4] maps, while Flax flattened [4, 4, C]:
   the carry-over reorders fc1's input rows to match.
+
+With `bf16` (inference only) the forward computes what jax.jit of the Flax
+module computes, as every JAX path runs it (the tracker step, the frontend
+evaluation), read from XLA's compiled CPU program at input 96, 192 and
+400: every conv and dense product takes bf16 operands, accumulates in f32
+and is rounded once to bf16, and its bias, rounded to bf16, is added in f32
+without rounding again; a residual block returns r(conv2) + r(x) in f32
+(r = round to bf16); every norm's statistics read its input rounded to bf16
+and normalise the input itself (`XlaGroupNorm(stats_of_rounded=True)`),
+with the sums in XLA's order (the sums kernel, kernels/norm_sums.py), as
+are the photo's and the score maps' instance norms; the per-scale resize
+runs in bf16, each of its two products rounded; the score maps and fc2's
+output stay f32, unrounded; the orientation conv runs in f32.  What is
+left unmatched: XLA's approximate rsqrt, and the products' f32 sums, which
+cuDNN / oneDNN add in another order than XLA.  The f32 forward (training)
+is the module's plain arithmetic.
 
 Tensor parallelism (the JAX package's "model" mesh axis, parallel/fleet.py)
 splits the descriptor MLP over a process group: fc1 is column-parallel
@@ -23,7 +35,10 @@ splits the descriptor MLP over a process group: fc1 is column-parallel
 scale and bias), fc2 row-parallel (the matching 512 / n inputs; partial
 products summed, the bias added once).  fc1_norm is GroupNorm(1) over all
 512 features, so its mean and mean square are summed over the group; a
-per-shard norm would compute another function.  `shard_lfnet_state_dict`
+per-shard norm would compute another function.  In bf16 each rank sums
+its features' windows of 32 (with n <= 16 a rank holds whole windows), the
+group gathers the window partials and adds them in window order, so the
+statistics equal the unsharded ones bit for bit.  `shard_lfnet_state_dict`
 and `gather_lfnet_state_dict` cut a full state dict to one rank's shard
 and make it whole again.
 """
@@ -56,13 +71,15 @@ from bundletrack_tpu_torch.ops.collectives import (
     reduce_from_group,
     sum_over_group,
 )
-from bundletrack_tpu_torch.ops.numerics import clip
+from bundletrack_tpu_torch.kernels.norm_sums import WINDOW, xla_order_sums
+from bundletrack_tpu_torch.ops.numerics import clip, round_bf16, xla_mean_var, xla_normalize
 from bundletrack_tpu_torch.ops.resize import resize_bilinear
 from bundletrack_tpu_torch.utils import params_io
 from bundletrack_tpu_torch.utils.flax_layers import (
     Conv,
     Dense,
     GroupNorm,
+    XlaGroupNorm,
     channel_shape,
     flax_from_state_dict,
     flax_param_shapes,
@@ -91,8 +108,12 @@ class FrozenBN(nn.Module):
                 * self.scale.view(shape) + self.bias.view(shape))
 
 
-def _make_norm(kind: str, c: int) -> nn.Module:
-    return FrozenBN(c) if kind == "bn" else GroupNorm(c, num_groups=1)
+def _make_norm(kind: str, c: int, dtype=torch.float32) -> nn.Module:
+    if kind == "bn":
+        return FrozenBN(c)
+    if dtype == torch.bfloat16:  # the jitted forward's norm (module docstring)
+        return XlaGroupNorm(c, stats_of_rounded=True)
+    return GroupNorm(c, num_groups=1)
 
 
 class ResBlock(nn.Module):
@@ -100,15 +121,18 @@ class ResBlock(nn.Module):
 
     def __init__(self, channels: int, ksize: int = 3, norm: str = "gn", dtype=torch.float32):
         super().__init__()
-        self.pre_norm = _make_norm(norm, channels)
+        self.pre_norm = _make_norm(norm, channels, dtype)
         self.conv1 = Conv(channels, channels, ksize, dtype=dtype)
-        self.mid_norm = _make_norm(norm, channels)
+        self.mid_norm = _make_norm(norm, channels, dtype)
         self.conv2 = Conv(channels, channels, ksize, dtype=dtype)
+        self.dtype = dtype
 
     def forward(self, x):
         h = self.conv1(F.relu(self.pre_norm(x)))
         h = self.conv2(F.relu(self.mid_norm(h)))
-        return h + x.to(h.dtype)
+        if self.dtype == torch.bfloat16:  # r(conv2) + r(x), in f32
+            return round_bf16(h) + round_bf16(x)
+        return h + x
 
 
 class MSODetector(nn.Module):
@@ -123,7 +147,7 @@ class MSODetector(nn.Module):
         for i in range(num_blocks):
             setattr(self, f"block_{i + 1}", ResBlock(channels, ksize, norm, dtype))
         self.num_blocks = num_blocks
-        self.final_norm = _make_norm(norm, channels)
+        self.final_norm = _make_norm(norm, channels, dtype)
         for i in range(num_scales):
             setattr(self, f"score_conv_{i}", Conv(channels, 1, ksize, dtype=dtype))
         self.ori_conv = Conv(channels, 2, ksize, dtype=torch.float32)  # no dtype in Flax: f32
@@ -145,14 +169,15 @@ class MSODetector(nn.Module):
         for i in range(self.num_blocks):
             x = getattr(self, f"block_{i + 1}")(x)
         feat_maps = F.relu(self.final_norm(x))  # f32
-        # the per-scale resize and score conv run in the compute dtype
+        # the per-scale resize (two products, each rounded in bf16) and the
+        # score conv run in the compute dtype; the score maps come out f32
         feat_rs = feat_maps.to(self.dtype)
         score_maps = []
         for i, s in enumerate(self.scale_factors()):
             inv_s = 1.0 / float(s)
             fh, fw = int(H * inv_s + 0.5), int(W * inv_s + 0.5)
             rs = resize_bilinear(feat_rs, (fh, fw))
-            score_maps.append(getattr(self, f"score_conv_{i}")(rs).to(torch.float32))
+            score_maps.append(getattr(self, f"score_conv_{i}")(rs))
         ori = self.ori_conv(feat_maps)
         ori = ori / clip(torch.linalg.vector_norm(ori, dim=1, keepdim=True), 1e-6)
         return score_maps, ori, feat_maps
@@ -168,11 +193,11 @@ class SimpleDesc(nn.Module):
         for i in range(num_layers):
             cout = init_channels * (2 ** i)
             setattr(self, f"conv{i + 1}", Conv(cin, cout, ksize, stride=2, dtype=dtype))
-            setattr(self, f"norm{i + 1}", _make_norm(norm, cout))
+            setattr(self, f"norm{i + 1}", _make_norm(norm, cout, dtype))
             cin, side = cout, -(-side // 2)
         self.num_layers = num_layers
         self.fc1 = Dense(cin * side * side, 512, dtype=dtype)
-        self.fc1_norm = _make_norm(norm, 512)
+        self.fc1_norm = _make_norm(norm, 512, dtype)
         self.fc2 = Dense(512, out_dim, dtype=dtype)
         self.model_group = None  # tensor parallelism over this group: `shard_lfnet_`
 
@@ -184,28 +209,42 @@ class SimpleDesc(nn.Module):
         x = x.reshape(x.shape[0], -1)  # (c, h, w) order: fc1's rows were reordered to it
         if self.model_group is None:
             x = F.relu(self.fc1_norm(self.fc1(x)))
-            x = self.fc2(x)
+            x = self.fc2(x)  # f32 (in bf16 unrounded after the bias add)
         else:
             x = self._mlp_tensor_parallel(x, self.model_group)
-        x = x.to(torch.float32)
         return x / clip(torch.linalg.vector_norm(x, dim=-1, keepdim=True), 1e-6)
 
     def _mlp_tensor_parallel(self, x, group):
         """fc1 -> fc1_norm -> relu -> fc2 with this rank's shards (module docstring)."""
-        h = self.fc1(copy_to_group(x, group))  # [N, 512 / n]
+        h = self.fc1(copy_to_group(x, group))  # [N, 512 / n] f32
         norm = self.fc1_norm
-        if isinstance(norm, GroupNorm):  # GroupNorm(1): statistics over all 512 features
-            h = h.to(torch.float32)
+        n = h.shape[-1] * group_size(group)
+        if isinstance(norm, XlaGroupNorm):  # window partials of every rank, added in window order
+            if h.shape[-1] % WINDOW:
+                raise ValueError(f"tensor-parallel bf16 fc1_norm: {h.shape[-1]} features per rank are not "
+                                 f"whole windows of {WINDOW}")
+            N = h.shape[0]
+            part = xla_order_sums(h.reshape(-1, WINDOW), round_bf16=norm.stats_of_rounded)
+            part = all_gather_cat(torch.stack(part).view(2, N, -1), group, dim=2)  # [2, N, windows]
+            s, s2 = xla_order_sums(part[0]), xla_order_sums(part[1])
+            mu, var = xla_mean_var(s[0], s2[0], n)
+            mul = torch.rsqrt(var + norm.eps)[:, None] * norm.scale
+            h = xla_normalize(h, mu[:, None], mul, norm.bias)
+        elif isinstance(norm, GroupNorm):  # GroupNorm(1): statistics over all 512 features
             stats = sum_over_group(torch.stack([h.sum(-1), (h * h).sum(-1)]), group)
-            n = torch.tensor(float(h.shape[-1] * group_size(group)))
-            mu, mu2 = (stats / n)[:, :, None]
+            mu, mu2 = (stats / torch.tensor(float(n)))[:, :, None]
             var = clip(mu2 - mu * mu, 0.0)
             h = (h - mu) * (torch.rsqrt(var + norm.eps) * norm.scale) + norm.bias
         else:  # per-feature: the shard's own rows
             h = norm(h)
-        h = F.relu(h).to(self.fc2.dtype)
-        y = reduce_from_group(F.linear(h, self.fc2.weight.to(self.fc2.dtype)), group)
-        return y + self.fc2.bias.to(self.fc2.dtype)
+        fc2 = self.fc2
+        h = F.relu(h).to(fc2.dtype)
+        if fc2.dtype == torch.float32:
+            return reduce_from_group(F.linear(h, fc2.weight), group) + fc2.bias
+        # the partial products exact in f32, summed over the group, then
+        # rounded once as the unsharded bf16 product is
+        y = reduce_from_group(F.linear(h.to(torch.float32), round_bf16(fc2.weight)), group)
+        return round_bf16(y) + round_bf16(fc2.bias)
 
 
 class LFNet(nn.Module):
@@ -242,11 +281,12 @@ class LFNet(nn.Module):
         c = self.cfg
         B, _, H, W = photos.shape
         dev = photos.device
-        photos_n = instance_norm(photos)
+        photos_n = instance_norm(photos, xla_order=c.bf16)
         score_maps, ori_maps, feat_maps = self.detector(photos_n)
         scale_factors = self.detector.scale_values
 
-        scale_logits = torch.cat([resize_bilinear(instance_norm(sm), (H, W)) for sm in score_maps], dim=1)
+        scale_logits = torch.cat([resize_bilinear(instance_norm(sm, xla_order=c.bf16), (H, W))
+                                  for sm in score_maps], dim=1)
         heat = soft_nms_3d(scale_logits, ksize=c.sm_ksize, com_strength=c.com_strength)
         if c.soft_scale:
             max_heat, max_scale = soft_max_and_argmax_1d(

@@ -60,7 +60,47 @@ def cos_deg_f32(deg: float) -> float:
     return float(torch.cos(torch.deg2rad(_t(deg))))
 
 
-
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
     """x rounded to bf16 (to nearest even) and held in f32."""
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+# ---- f32 arithmetic in the order jax.jit computes it on the CPU -------------
+# XLA's CPU backend contracts a multiply feeding an add into one fused
+# multiply-add, and turns a division by a constant into a product with its
+# f32 reciprocal; the LF-Net's norms (Flax GroupNorm, instance_norm) compute
+# their statistics and their output that way under jax.jit.
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c of f32 tensors (broadcast) with one rounding, as a fused
+    multiply-add: the product is exact in f64, and the f64 sum rounds to
+    the f32 an fma gives except at an f32 halfway point after the f64
+    rounding (about one input in 2^29)."""
+    # b in f64 promotes the product and the sum to f64 inside one kernel
+    return torch.addcmul(c, a, b.double()).float()
+
+
+def reciprocal_f32(n: int) -> float:
+    """f32(1) / f32(n), the factor XLA multiplies a sum of n elements by
+    for their mean."""
+    return float(_t(1.0) / _t(float(n)))
+
+
+def xla_mean_var(s: torch.Tensor, s2: torch.Tensor, n: int):
+    """(mean, variance) from the sums and sums of squares [B] of n elements
+    each, as jax.jit computes Flax's statistics (use_fast_variance): mean =
+    sum * (1/n); var = max(0, fma(sum2, 1/n, -(mean * mean))), or for a
+    single sample (B = 1, where XLA folds the two factors 1/n of mean *
+    mean into one) max(0, fma(sum2, 1/n, -(sum * sum) * (1/n)^2))."""
+    inv = reciprocal_f32(n)
+    mean = s * inv
+    square = (s * s) * float(_t(inv) * _t(inv)) if s.numel() == 1 else mean * mean
+    # fma(sum2, inv, -square): sum2 * inv is exact in f64 (fma_f32's rounding)
+    return mean, torch.clamp_min(torch.sub(s2.double() * inv, square).float(), 0.0)
+
+
+def xla_normalize(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """fma(x - mean, mul, bias): Flax's `(x - mean) * mul + bias` as jax.jit
+    computes it, mul = rsqrt(var + eps) * scale."""
+    return fma_f32(x - mean, mul, bias)

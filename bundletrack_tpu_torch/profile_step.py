@@ -148,6 +148,10 @@ def lfnet_forward_cost(lfnet, crop) -> dict:
             "bound_ms": max(terms.values()), "bound_by": max(terms, key=terms.get)}
 
 
+# the sums kernel's two passes, as the profiler names them (csrc/xla_order_sums.cu)
+SUMS_KERNELS = ("window_layout_kernel", "window_chains_kernel")
+
+
 def lfnet_forward_report(lfnet, cfg, seq, card: str) -> dict:
     """The LF-Net forward alone on frame 0's masked ROI crop."""
     S = cfg.frontend.input_size
@@ -172,13 +176,19 @@ def lfnet_forward_report(lfnet, cfg, seq, card: str) -> dict:
           f"profiler {len(kernels) / n_prof:.0f} launches, {device_ms:.4f} ms device time per forward [{card}]")
     for name, t in by_name.most_common(10):
         print(f"  {t:9.4f} ms/forward  {name[:100]}")
+    # the norm statistics' sums kernel (kernels/norm_sums.py) in the bf16 forward
+    sums_ms = sum(t for name, t in by_name.items() if any(k in name for k in SUMS_KERNELS))
+    sums_launches = sum(SUMS_KERNELS[-1] in e.name for e in kernels) / n_prof
+    print(f"  sums kernel ({' + '.join(SUMS_KERNELS)}): {sums_launches:.0f} calls, {sums_ms:.4f} ms per forward, "
+          f"{100 * sums_ms / max(device_ms, 1e-9):.1f} % of the device time")
     print("  products by group: " + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in cost["flops_by_group"].items())
           + " GFLOP")
     print(f"  products {', '.join(f'{k} {v / 1e9:.3f} GFLOP' for k, v in cost['flops'].items())}; "
           f"least bytes {cost['bytes'] / 1e6:.3f} MB; bound {cost['bound_ms']:.5f} ms ({cost['bound_by']}: "
           + ", ".join(f"{k} {v:.5f}" for k, v in cost["bound_terms_ms"].items()) + ")")
     return {"median_ms": ms, "launches_per_forward": len(kernels) / n_prof,
-            "device_ms_per_forward": device_ms,
+            "device_ms_per_forward": device_ms, "sums_kernel_ms_per_forward": sums_ms,
+            "sums_kernel_launches_per_forward": sums_launches,
             "top_kernels_ms_per_forward": dict(by_name.most_common(10)), **cost}
 
 

@@ -11,6 +11,11 @@ checkpoints depend on Flax's exact conventions:
 - parameters are stored under flat names (`ResNetBlock_1/Conv_0/kernel`),
   conv kernels as HWIO and dense kernels as [in, out].
 
+In bf16 the layers compute what jax.jit of the Flax module computes (the
+JAX package runs its LF-Net jitted), not the module run op by op: XLA on
+the CPU keeps the bias add in f32 after the product's one rounding to
+bf16, and sums a norm's statistics in its own order (`XlaGroupNorm`).
+
 A port module names its submodules as Flax did (dots for slashes), so
 `flax_param_shapes` and `state_dict_from_flax` map a checkpoint onto it
 name for name.
@@ -23,7 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from bundletrack_tpu_torch.ops.numerics import clip
+from bundletrack_tpu_torch.kernels.norm_sums import xla_order_sums
+from bundletrack_tpu_torch.ops.numerics import clip, round_bf16, xla_mean_var, xla_normalize
 
 
 def same_pads(size: int, k: int, stride: int):
@@ -33,8 +39,20 @@ def same_pads(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
+def _bias_add(y: torch.Tensor, bias: torch.Tensor, shape) -> torch.Tensor:
+    """y + bias in f32: in f32 as it is; a bf16 product rounded once
+    (the result of the bf16 op) plus the bias rounded to bf16, kept in f32
+    and not rounded again, as the jitted Flax layer computes it."""
+    if y.dtype == torch.float32:
+        return y + bias.view(shape)
+    return y.to(torch.float32) + round_bf16(bias).view(shape)
+
+
 class Conv(nn.Module):
-    """Flax nn.Conv with "SAME" padding, computed in `dtype`."""
+    """Flax nn.Conv with "SAME" padding.  In f32: conv + bias.  In bf16:
+    the product of bf16 operands, accumulated in f32 and rounded once to
+    bf16, plus the bias rounded to bf16, added in f32 (`_bias_add`); the
+    result is f32 either way."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, dtype=torch.float32):
         super().__init__()
@@ -49,11 +67,11 @@ class Conv(nn.Module):
             y = F.conv2d(x, self.weight.to(self.dtype), stride=self.stride, padding=(th, tw))
         else:
             y = F.conv2d(F.pad(x, (tw, bw, th, bh)), self.weight.to(self.dtype), stride=self.stride)
-        return y + self.bias.to(self.dtype)[None, :, None, None]
+        return _bias_add(y, self.bias, (1, -1, 1, 1))
 
 
 class Dense(nn.Module):
-    """Flax nn.Dense computed in `dtype`; the weight is [out, in]."""
+    """Flax nn.Dense, the weight [out, in]; in bf16 as `Conv` is."""
 
     def __init__(self, cin: int, cout: int, dtype=torch.float32):
         super().__init__()
@@ -62,7 +80,7 @@ class Dense(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype)) + self.bias.to(self.dtype)
+        return _bias_add(F.linear(x.to(self.dtype), self.weight.to(self.dtype)), self.bias, (-1,))
 
 
 def channel_shape(x):
@@ -94,6 +112,31 @@ class GroupNorm(nn.Module):
         # Flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
         mul = torch.rsqrt(var + self.eps) * self.scale.view(1, G, C // G, 1)
         return ((g - mu) * mul + self.bias.view(1, G, C // G, 1)).reshape(x.shape)
+
+
+class XlaGroupNorm(GroupNorm):
+    """Flax nn.GroupNorm(1, dtype=f32) as jax.jit computes it on the CPU:
+    the sum and the sum of squares in XLA's order (kernels/norm_sums.py),
+    mean and variance by `xla_mean_var`, the output fma(x - mean,
+    rsqrt(var + eps) * scale, bias).  XLA's rsqrt is approximate (about 1.2
+    ulp); torch's is not, and that is left unmatched.  With
+    `stats_of_rounded` the statistics read x rounded to bf16 while x itself
+    is normalised: in the jitted bf16 LF-Net the norm's input is a bf16
+    value whose rounding XLA keeps for the reduction only.  Inference only
+    (no gradient)."""
+
+    def __init__(self, c: int, eps: float = 1e-6, stats_of_rounded: bool = False):
+        super().__init__(c, num_groups=1, eps=eps)
+        self.stats_of_rounded = stats_of_rounded
+
+    def forward(self, x):
+        x = x.to(torch.float32)
+        s, s2 = xla_order_sums(x, round_bf16=self.stats_of_rounded)
+        mean, var = xla_mean_var(s, s2, x[0].numel())
+        shape = (-1,) + (1,) * (x.dim() - 1)
+        cshape = channel_shape(x)
+        mul = torch.rsqrt(var + self.eps).view(shape) * self.scale.view(cshape)
+        return xla_normalize(x, mean.view(shape), mul, self.bias.view(cshape))
 
 
 def _is_kernel(key: str, t: torch.Tensor) -> bool:

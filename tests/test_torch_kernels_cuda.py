@@ -216,6 +216,73 @@ def test_pairs_kernel_index_outside_the_table_is_a_cuda_error():
     assert proc.returncode != 0 and "NO ERROR" not in proc.stdout, proc.stdout + proc.stderr[-2000:]
 
 
+# the sums kernel's shapes: the detector's norms at input 400 (one crop and
+# the fleet's 8), the descriptor's at 512 keypoints, the photo's and the
+# score maps' instance norms, and ragged shapes (an odd grid, 48 channels
+# in windows of 32 with "SAME" padding, the [B, F] form)
+SUMS_CASES = [
+    ((1, 16, 400, 400), False, True, False), ((8, 16, 400, 400), False, True, False),
+    ((512, 64, 16, 16), False, True, False), ((512, 128, 8, 8), False, True, False),
+    ((512, 256, 4, 4), False, True, False), ((512, 512), False, True, False),
+    ((1, 1, 400, 400), True, False, False), ((1, 1, 400, 400), True, False, True),
+    ((1, 1, 800, 800), True, False, True), ((1, 1, 283, 283), True, False, True),
+    ((2, 16, 96, 96), False, False, False), ((3, 48, 7, 9), False, False, False), ((5, 96), False, False, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,per_channel,round_bf16,shift", SUMS_CASES, ids=str)
+def test_sums_kernel_matches_plain_version_bit_for_bit(shape, per_channel, round_bf16, shift):
+    """The sums kernel adds in the plain version's order: equal bits, and
+    equal again on a second launch (the ticket counter was reset)."""
+    from bundletrack_tpu_torch.kernels import norm_sums as ns
+
+    _need_card()
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen) * 0.7 + 0.3
+    G = shape[0] * (shape[1] if per_channel else 1)
+    sh = torch.randn(G, generator=gen) if shift else None
+    want = ns.xla_order_sums_reference(x, per_channel, round_bf16, sh)
+    before = ns.launches
+    for _ in range(2):
+        got = ns.xla_order_sums(x.cuda(), per_channel, round_bf16, None if sh is None else sh.cuda())
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), (shape, a.cpu() - b)
+    assert ns.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [192, 400])
+def test_lfnet_bf16_forward_on_the_card_matches_the_cpu(size):
+    """The bf16 forward on the shipped weights (the jitted JAX forward's
+    function) on both devices, on masked crops of rendered 480x640 frames:
+    at least 95 % of the CPU's keypoints found on the card (cuDNN's bf16
+    products sum in another order, and a bf16 rounding flips now and then),
+    and the norms went through the sums kernel."""
+    from bundletrack_tpu_torch.cardrun import masked_crop, render_main_sequence
+    from bundletrack_tpu_torch.frontend import lfnet
+    from bundletrack_tpu_torch.kernels import norm_sums as ns
+
+    _need_card()
+    cfg = FrontendConfig(kind="lfnet", input_size=size, top_k=512, bf16=True)
+    _, params = lfnet.load_params_npz("checkpoints/lfnet_params.npz", cfg)
+    apply = {dev: lfnet.make_lfnet_apply(cfg, params).to(dev) for dev in ("cuda", "cpu")}
+    seq = render_main_sequence(3)
+    found = total = 0
+    for f in range(3):
+        crop = masked_crop(seq, f, size)[..., None]
+        before = ns.launches
+        card = apply["cuda"](crop.cuda())
+        assert ns.launches > before
+        cpu = apply["cpu"](crop.cpu())
+        ck, gk = cpu.kpts_uv[cpu.valid].numpy(), card.kpts_uv[card.valid].cpu().numpy()
+        d = np.linalg.norm(ck[:, None] - gk[None], axis=-1)
+        found += int((d.min(axis=1) < 0.05).sum())
+        total += len(ck)
+    assert found >= 0.95 * total, (found, total)
+
+
 @pytest.mark.cuda
 def test_tracker_on_the_card_matches_the_cpu():
     """The same frames and RANSAC phases through the step on both devices."""
