@@ -43,15 +43,18 @@
 //      window's chunk is 512 contiguous bytes), chunk k + STAGES - 1 in
 //      flight while warps 0 and 2 add chunk k out of shared memory, four
 //      elements per 16-byte read (a window's row stride is 4 mod 32 floats:
-//      no bank conflict), with __fadd_rn / __fmul_rn (no contraction).  Each block writes its
-//      partials; the last block to finish (a ticket on a counter that it
-//      resets) adds every group's partials in window order, one thread per
-//      group.
+//      no bank conflict), with __fadd_rn / __fmul_rn (no contraction).
+//      Each block writes its partials; the last block to finish (a ticket
+//      on a counter that it resets) adds every group's partials in window
+//      order, one thread per group.  Two launches in flight at once must
+//      not share the counter: the wrapper keeps one per stream.
 // Measured on an H100 (PERF.md, `sums_bench`): ~11 us of layout and ~58 us
-// of chains on [1, 16, 400, 400] against its 33 us chain bound (staging
-// straight from NCHW with 4-byte copies took 0.75 ms).  What remains is the
-// adding lanes' wait on shared memory: ptxas issues each 16-byte read
-// shortly before its adds.
+// of chains on [1, 16, 400, 400] against its 33 us chain bound, at the 4.2
+// cycles per dependent add and 1.98 GHz that `xla_order_sums_add_probe`
+// reads on the card.  Staging straight from NCHW was slower: with 4-byte
+// copies, and with 16-byte copies whose rounding the adding lanes did (a
+// warp issues in order, and its conversions run at a quarter of the adds'
+// rate).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -159,6 +162,16 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
+// What the last block derives from each group's sums besides them (null
+// mean: nothing): mean = sum * inv, variance = max(0, fma(sum2, inv,
+// -square)), square = mean * mean, or (sum * sum) * inv2 for a single group,
+// inv = f32(1 / n) and inv2 = f32(inv * inv) for n elements per group.
+struct Stats {
+  float inv, inv2;
+  float* mean;
+  float* var;
+};
+
 // Kernel 2: g.per_block (<= CHAINS) windows per block and THREADS2
 // threads: warp 0 adds the sums (lane j: window j), warp 2 the sums of
 // squares, warp 1 stages the windows' chunks ahead of both.
@@ -168,7 +181,7 @@ __global__ void __launch_bounds__(THREADS2, 1) window_chains_kernel(const float*
                                                                  float* __restrict__ partials,
                                                                  float* __restrict__ out_sum,
                                                                  float* __restrict__ out_sumsq,
-                                                                 unsigned int* __restrict__ counter) {
+                                                                 unsigned int* __restrict__ counter, Stats stats) {
   extern __shared__ __align__(16) float ring[];  // [STAGES][per_block][ROW]
   __shared__ unsigned int ticket;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -286,10 +299,38 @@ __global__ void __launch_bounds__(THREADS2, 1) window_chains_kernel(const float*
       }
       out_sum[g0 + j] = a;
       out_sumsq[g0 + j] = a2;
+      if (stats.mean) {  // Flax's mean and fast variance as jax.jit computes them (ops/numerics.xla_mean_var)
+        const float m = __fmul_rn(a, stats.inv);
+        const float sq = g.G == 1 ? __fmul_rn(__fmul_rn(a, a), stats.inv2) : __fmul_rn(m, m);
+        const float v = __fmaf_rn(a2, stats.inv, -sq);
+        stats.mean[g0 + j] = m;
+        stats.var[g0 + j] = v > 0.f ? v : 0.f;
+      }
     }
     __syncthreads();
   }
   if (tid == 0) *counter = 0u;
+}
+
+// One warp, one dependent chain of n f32 adds per lane (n a multiple of 8):
+// t[0] the SM cycles (clock64) and t[1] the nanoseconds (globaltimer) the
+// chain took, out[lane] its result.
+__global__ void add_chain_probe_kernel(int n, float step, float* out, long long* t) {
+  float acc = (float)threadIdx.x;
+  unsigned long long g0, g1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g0));
+  const long long c0 = clock64();
+  for (int i = 0; i < n; i += 8) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc = __fadd_rn(acc, step);
+  }
+  const long long c1 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));
+  out[threadIdx.x] = acc;
+  if (threadIdx.x == 0) {
+    t[0] = c1 - c0;
+    t[1] = (long long)(g1 - g0);
+  }
 }
 
 constexpr size_t RING_BYTES = sizeof(float) * STAGES * CHAINS * ROW;  // the most a block takes
@@ -320,17 +361,22 @@ size_t xla_order_sums_workspace_floats(int B, int C, int H, int W, int per_chann
 // shift: null, or [G] f32 subtracted from every element of its group first;
 // round_bf16: round every element to bf16 first (not with a shift).
 // workspace: xla_order_sums_workspace_floats(...) floats, 16-byte aligned;
-// counter: one unsigned int that holds 0 (the launch leaves it 0).
+// counter: one unsigned int that holds 0 (the launch leaves it 0), used by
+// no launch on another stream while this one runs.
+// out_mean, out_var: null, or [G] each for the group's mean and variance as
+// jax.jit computes Flax GroupNorm's (struct Stats; inv = f32(1 / n), inv2 =
+// f32(inv * inv), n the elements per group).
 // Launches on `stream`, does not synchronise, returns the CUDA error of the
 // launches (or cudaErrorInvalidValue for a shape or flags it does not take).
 int xla_order_sums_launch(const float* x, int B, int C, int H, int W, int per_channel, int round_bf16,
                           const float* shift, float* out_sum, float* out_sumsq, float* workspace,
-                          unsigned int* counter, void* stream) {
-  static bool ring_set = false;
+                          unsigned int* counter, float inv, float inv2, float* out_mean, float* out_var,
+                          void* stream) {
   Geometry g;
   const int err = make_geometry(B, C, H, W, per_channel, &g);
   if (err != 0) return err;
   if (round_bf16 && shift) return (int)cudaErrorInvalidValue;
+  if ((out_mean == nullptr) != (out_var == nullptr)) return (int)cudaErrorInvalidValue;
   if (g.chains == 0) return 0;
   if (g.chains > 0x7fffffffLL || g.wh > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -340,15 +386,22 @@ int xla_order_sums_launch(const float* x, int B, int C, int H, int W, int per_ch
           : shift    ? launch_layout<false, true>(x, g, shift, xt, st)
                      : launch_layout<false, false>(x, g, shift, xt, st);
   if (e != 0) return e;
-  if (!ring_set) {
-    const cudaError_t a = cudaFuncSetAttribute(window_chains_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)RING_BYTES);
-    if (a != cudaSuccess) return (int)a;
-    ring_set = true;
-  }
+  // set on every launch: the attribute belongs to the current device
+  const cudaError_t a = cudaFuncSetAttribute(window_chains_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)RING_BYTES);
+  if (a != cudaSuccess) return (int)a;
   const unsigned blocks = (unsigned)((g.chains + g.per_block - 1) / g.per_block);
   const size_t ring = sizeof(float) * STAGES * g.per_block * ROW;
-  window_chains_kernel<<<blocks, THREADS2, ring, st>>>(xt, g, partials, out_sum, out_sumsq, counter);
+  window_chains_kernel<<<blocks, THREADS2, ring, st>>>(xt, g, partials, out_sum, out_sumsq, counter,
+                                                      Stats{inv, inv2, out_mean, out_var});
+  return (int)cudaGetLastError();
+}
+
+// One warp adds a dependent chain of n f32 adds (n a multiple of 8) per
+// lane on `stream`: t[0] <- SM cycles, t[1] <- nanoseconds; out: 32 floats.
+int xla_order_sums_add_probe(int n, float* out, long long* t, void* stream) {
+  if (n <= 0 || n % 8) return (int)cudaErrorInvalidValue;
+  add_chain_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(n, 1e-7f, out, t);
   return (int)cudaGetLastError();
 }
 

@@ -19,10 +19,10 @@ evaluation), read from XLA's compiled CPU program at input 96, 192 and
 400: every conv and dense product takes bf16 operands, accumulates in f32
 and is rounded once to bf16, and its bias, rounded to bf16, is added in f32
 without rounding again; a residual block returns r(conv2) + r(x) in f32
-(r = round to bf16); every norm's statistics read its input rounded to bf16
-and normalise the input itself (`XlaGroupNorm(stats_of_rounded=True)`),
-with the sums in XLA's order (the sums kernel, kernels/norm_sums.py), as
-are the photo's and the score maps' instance norms; the per-scale resize
+(r = round to bf16); every norm's statistics read its input rounded to
+bf16 and normalise the input itself (`XlaGroupNorm`), with the sums in
+XLA's order (the sums kernel, kernels/norm_sums.py), as are the photo's
+and the score maps' instance norms; the per-scale resize
 runs in bf16, each of its two products rounded; the score maps and fc2's
 output stay f32, unrounded; the orientation conv runs in f32.  What is
 left unmatched: XLA's approximate rsqrt, and the products' f32 sums, which
@@ -112,7 +112,7 @@ def _make_norm(kind: str, c: int, dtype=torch.float32) -> nn.Module:
     if kind == "bn":
         return FrozenBN(c)
     if dtype == torch.bfloat16:  # the jitted forward's norm (module docstring)
-        return XlaGroupNorm(c, stats_of_rounded=True)
+        return XlaGroupNorm(c)
     return GroupNorm(c, num_groups=1)
 
 
@@ -224,7 +224,7 @@ class SimpleDesc(nn.Module):
                 raise ValueError(f"tensor-parallel bf16 fc1_norm: {h.shape[-1]} features per rank are not "
                                  f"whole windows of {WINDOW}")
             N = h.shape[0]
-            part = xla_order_sums(h.reshape(-1, WINDOW), round_bf16=norm.stats_of_rounded)
+            part = xla_order_sums(h.reshape(-1, WINDOW), round_bf16=True)
             part = all_gather_cat(torch.stack(part).view(2, N, -1), group, dim=2)  # [2, N, windows]
             s, s2 = xla_order_sums(part[0]), xla_order_sums(part[1])
             mu, var = xla_mean_var(s[0], s2[0], n)

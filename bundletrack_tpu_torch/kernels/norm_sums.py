@@ -18,7 +18,12 @@ shapes (tests/test_torch_norm_sums.py); a 2x2 or 4x4 window grid (inputs
 64 and 128) is not XLA's order, and is bounded there instead.
 
 For a CUDA tensor the wrapper launches the kernel in csrc/xla_order_sums.cu
-(built with nvcc at first use, bound with ctypes) or raises; it sends
+(built with nvcc at first use, bound with ctypes) or raises.  The kernel's
+last block finds itself by a ticket counter, and each launch writes a
+workspace; the wrapper keeps both per device and stream, so launches on one
+stream share them in order and launches on two streams never do.
+`xla_order_mean_var` has that last block derive GroupNorm's mean and
+variance from the sums in the same launch.  The wrapper sends
 tensors on the CPU, and only those, to the plain version
 `xla_order_sums_reference`, which adds sequentially in f32 on the host
 (numpy's add.accumulate; torch.cumsum may accumulate in double).  Neither
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from bundletrack_tpu_torch.kernels import build
+from bundletrack_tpu_torch.ops.numerics import reciprocal_f32, square_f32, xla_mean_var
 
 SOURCE = "xla_order_sums.cu"
 WINDOW = 32  # XLA's window along each reduced axis
@@ -104,18 +110,31 @@ def _library():
     lib = build.load(SOURCE)
     lib.xla_order_sums_launch.restype = ctypes.c_int
     lib.xla_order_sums_launch.argtypes = (
-        [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 6
+        [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5 + [ctypes.c_float] * 2
+        + [ctypes.c_void_p] * 3
     )
     lib.xla_order_sums_workspace_floats.restype = ctypes.c_size_t
     lib.xla_order_sums_workspace_floats.argtypes = [ctypes.c_int] * 5
+    lib.xla_order_sums_add_probe.restype = ctypes.c_int
+    lib.xla_order_sums_add_probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _counter(device: torch.device) -> torch.Tensor:
-    """The kernel's ticket counter on `device`: 0 between launches (the last
-    block of each launch resets it)."""
-    return torch.zeros(1, dtype=torch.int32, device=device)
+class _StreamScratch:
+    """One stream's ticket counter (0 between launches: the last block of
+    each launch resets it) and workspace, grown to the largest launch."""
+
+    def __init__(self, device: torch.device):
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+        self.workspace = torch.empty(0, dtype=torch.float32, device=device)
+
+    def workspace_ptr(self, floats: int) -> int:
+        if self.workspace.numel() < floats:
+            self.workspace = torch.empty(floats, dtype=torch.float32, device=self.counter.device)
+        return self.workspace.data_ptr()
+
+
+_scratch: dict = {}  # (device index, stream handle) -> _StreamScratch
 
 
 @functools.lru_cache(maxsize=1024)
@@ -126,31 +145,53 @@ def _workspace_floats(B: int, C: int, H: int, W: int, per_channel: bool) -> int:
     return n
 
 
-def _launch(x4: torch.Tensor, per_channel: bool, round_bf16: bool, shift):
+def _launch(x4: torch.Tensor, per_channel: bool, round_bf16: bool, shift, stats: bool = False):
+    """The kernel on x4: (sum, sum of squares), or with `stats` the (mean,
+    variance) the last block derives from them."""
     global launches
     B, C, H, W = x4.shape
     dev = x4.device
     G = B * C if per_channel else B
-    out = torch.empty((2, G), dtype=torch.float32, device=dev)
+    out = torch.empty((4 if stats else 2, G), dtype=torch.float32, device=dev)
     if G == 0:
-        return out[0], out[1]
-    workspace = torch.empty(_workspace_floats(B, C, H, W, per_channel), dtype=torch.float32, device=dev)
+        return out[-2], out[-1]
     x4 = x4.contiguous()
     shift_ptr = None
     if shift is not None:
         shift = shift.to(torch.float32).contiguous()
         shift_ptr = shift.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _scratch.get((dev.index, stream))
+    if scratch is None:
+        scratch = _scratch[(dev.index, stream)] = _StreamScratch(dev)
     args = (x4.data_ptr(), B, C, H, W, int(per_channel), int(round_bf16), shift_ptr, out[0].data_ptr(),
-            out[1].data_ptr(), workspace.data_ptr(), _counter(dev).data_ptr())
+            out[1].data_ptr(), scratch.workspace_ptr(_workspace_floats(B, C, H, W, per_channel)),
+            scratch.counter.data_ptr())
+    n = x4[0].numel() // (C if per_channel else 1)
+    inv = reciprocal_f32(n)
+    args += ((inv, square_f32(inv), out[2].data_ptr(), out[3].data_ptr()) if stats else (0.0, 0.0, None, None))
+    args += (stream,)
     if dev.index == torch.cuda.current_device():
-        err = _library().xla_order_sums_launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+        err = _library().xla_order_sums_launch(*args)
     else:
         with torch.cuda.device(dev):
-            err = _library().xla_order_sums_launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+            err = _library().xla_order_sums_launch(*args)
     if err != 0:
         raise RuntimeError(f"xla_order_sums kernel launch failed: CUDA error {err}")
     launches += 1
-    return out[0], out[1]
+    return out[-2], out[-1]
+
+
+def _check(x: torch.Tensor, round_bf16: bool, shift) -> torch.Tensor:
+    x4 = _as_nchw(x)
+    if x4.dtype != torch.float32:
+        raise ValueError(f"xla_order_sums: x is {x4.dtype}, not float32")
+    if round_bf16 and shift is not None:
+        raise ValueError("xla_order_sums: round_bf16 and shift do not go together")
+    if torch.is_grad_enabled() and (x4.requires_grad or (shift is not None and shift.requires_grad)):
+        raise RuntimeError("xla_order_sums has no gradient: call it under torch.no_grad() or "
+                           "torch.inference_mode() (the bf16 LF-Net forward is inference only)")
+    return x4
 
 
 def xla_order_sums(x: torch.Tensor, per_channel: bool = False, round_bf16: bool = False,
@@ -161,14 +202,7 @@ def xla_order_sums(x: torch.Tensor, per_channel: bool = False, round_bf16: bool 
     and `shift` do not go together.  CUDA tensors go to the kernel (or
     raise); CPU tensors to the plain version.  No gradient: an input that
     requires one while autograd records raises."""
-    x4 = _as_nchw(x)
-    if x4.dtype != torch.float32:
-        raise ValueError(f"xla_order_sums: x is {x4.dtype}, not float32")
-    if round_bf16 and shift is not None:
-        raise ValueError("xla_order_sums: round_bf16 and shift do not go together")
-    if torch.is_grad_enabled() and (x4.requires_grad or (shift is not None and shift.requires_grad)):
-        raise RuntimeError("xla_order_sums has no gradient: call it under torch.no_grad() or "
-                           "torch.inference_mode() (the bf16 LF-Net forward is inference only)")
+    x4 = _check(x, round_bf16, shift)
     G = x4.shape[0] * (x4.shape[1] if per_channel else 1)
     if shift is not None and (tuple(shift.shape) != (G,) or shift.device != x4.device):
         raise ValueError(f"xla_order_sums: shift must be [{G}] on {x4.device}, not "
@@ -176,3 +210,30 @@ def xla_order_sums(x: torch.Tensor, per_channel: bool = False, round_bf16: bool 
     if x4.device.type == "cpu":
         return xla_order_sums_reference(x4, per_channel, round_bf16, shift)
     return _launch(x4, per_channel, round_bf16, shift)
+
+
+def xla_order_mean_var(x: torch.Tensor, round_bf16: bool = False):
+    """(mean, variance) [B] of each sample of x (f32 [B, C, H, W] or [B, F])
+    as jax.jit computes Flax GroupNorm(1)'s (`ops/numerics.xla_mean_var` of
+    the sums in XLA's order).  On the card the kernel's last block derives
+    them from its sums, with the device's fused multiply-add, in the same
+    launch; on the CPU the plain sums go through `xla_mean_var`."""
+    x4 = _check(x, round_bf16, None)
+    if x4.device.type == "cpu":
+        return xla_mean_var(*xla_order_sums_reference(x4, False, round_bf16), x4[0].numel())
+    return _launch(x4, False, round_bf16, None, stats=True)
+
+
+def add_probe(n: int = 1 << 20, device=None):
+    """(SM cycles per dependent f32 add, SM clock in GHz) on the card: one
+    warp adds a chain of n f32 adds (the latency the chain bound assumes)."""
+    dev = torch.device(device if device is not None else "cuda")
+    out = torch.empty(32, dtype=torch.float32, device=dev)
+    t = torch.zeros(2, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        err = _library().xla_order_sums_add_probe(n, out.data_ptr(), t.data_ptr(),
+                                                  torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"xla_order_sums add probe failed: CUDA error {err}")
+    cycles, ns = (int(v) for v in t.cpu())
+    return cycles / n, cycles / max(ns, 1)

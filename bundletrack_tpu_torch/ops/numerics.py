@@ -10,6 +10,8 @@ the device) is needed.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _F32_TINY = float(torch.finfo(torch.float32).tiny)
@@ -24,6 +26,7 @@ def f32(x: float) -> float:
     return float(_t(x))
 
 
+@functools.lru_cache(maxsize=None)
 def square_f32(x: float) -> float:
     """f32(x) ** 2 evaluated in f32."""
     t = _t(x)
@@ -81,6 +84,7 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.addcmul(c, a, b.double()).float()
 
 
+@functools.lru_cache(maxsize=None)
 def reciprocal_f32(n: int) -> float:
     """f32(1) / f32(n), the factor XLA multiplies a sum of n elements by
     for their mean."""
@@ -95,7 +99,7 @@ def xla_mean_var(s: torch.Tensor, s2: torch.Tensor, n: int):
     mean into one) max(0, fma(sum2, 1/n, -(sum * sum) * (1/n)^2))."""
     inv = reciprocal_f32(n)
     mean = s * inv
-    square = (s * s) * float(_t(inv) * _t(inv)) if s.numel() == 1 else mean * mean
+    square = (s * s) * square_f32(inv) if s.numel() == 1 else mean * mean
     # fma(sum2, inv, -square): sum2 * inv is exact in f64 (fma_f32's rounding)
     return mean, torch.clamp_min(torch.sub(s2.double() * inv, square).float(), 0.0)
 

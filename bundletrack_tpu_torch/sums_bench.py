@@ -10,7 +10,9 @@ must equal its plain version's bit for bit, twice (the ticket counter is
 reset); then each is timed with CUDA events beside torch.sum of the same
 tensor, and the profiler gives the device time of its two passes (the
 window layout and the chains) beside the least time of the dependent chain
-(4 cycles per f32 add at 1.98 GHz) and of the bytes.  Last, the 400x400 bf16
+(4 cycles per f32 add at 1.98 GHz; and at the add latency and SM clock the
+probe reads on the card: one warp adding a chain of 2^20 dependent f32
+adds) and of the bytes.  Last, the 400x400 bf16
 LF-Net forward on the shipped weights (`profile_step.lfnet_forward_report`:
 launches, device ms, the sums kernel's share).
 
@@ -33,11 +35,12 @@ CASES = [
     ((4096, 64, 16, 16), False, True, False),
     ((1, 1, 400, 400), True, False, False), ((1, 1, 400, 400), True, False, True),
     ((1, 1, 800, 800), True, False, True), ((1, 1, 283, 283), True, False, False),
+    ((1, 1, 200, 200), True, False, True), ((1, 1, 68, 68), True, False, True),
     ((2, 16, 96, 96), False, False, False), ((1, 16, 192, 192), False, True, False),
     ((3, 48, 7, 9), False, False, False),
 ]
 PROFILED_CALLS = 10
-PASSES = ("window_layout_kernel", "window_chains_kernel")
+PASSES = ("window_layout_kernel", "window_chains_kernel")  # profiler names
 ADD_CYCLES, SM_CLOCK_HZ, HBM_BYTES_PER_S = 4, 1.98e9, 3.35e12
 
 
@@ -60,6 +63,10 @@ def kernel_report(card: str) -> bool:
     from bundletrack_tpu_torch.cardrun import cuda_median_ms
     from bundletrack_tpu_torch.kernels import norm_sums as ns
 
+    ns.add_probe(1 << 12)  # the first launch loads the module
+    cycles, ghz = ns.add_probe()
+    print(f"add probe: {cycles:.3f} SM cycles per dependent f32 add, SM clock {ghz:.3f} GHz "
+          f"({cycles / ghz:.3f} ns per add) [{card}]", flush=True)
     ok = True
     gen = torch.Generator().manual_seed(0)
     for shape, per_channel, round_bf16, shift in CASES:
@@ -91,8 +98,9 @@ def kernel_report(card: str) -> bool:
         chain_us = 1e3 * chain_bound_ms(shape, per_channel)
         print(f"sums {list(shape)} per_channel={per_channel} round_bf16={round_bf16} shift={shift}: equal bits "
               f"{equal}; {ms:.4f} ms (CUDA events), torch.sum {sum_ms:.4f} ms; device us per call: layout "
-              f"{us[PASSES[0]]:.2f}, chains {us[PASSES[1]]:.2f}; bounds: chain {chain_us:.2f} us, bytes "
-              f"{1e3 * bytes_ms:.2f} us [{card}]", flush=True)
+              f"{us[PASSES[0]]:.2f}, chains {us[PASSES[1]]:.2f}; "
+              f"bounds: chain {chain_us:.2f} us ({chain_us * cycles / ADD_CYCLES * SM_CLOCK_HZ / 1e9 / ghz:.2f} at "
+              f"the probe's latency and clock), bytes {1e3 * bytes_ms:.2f} us [{card}]", flush=True)
     print("sums kernel: " + ("every case equal to the plain version" if ok else "DIFFERS from its plain version"))
     return ok
 

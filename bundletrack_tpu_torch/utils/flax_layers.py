@@ -28,8 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from bundletrack_tpu_torch.kernels.norm_sums import xla_order_sums
-from bundletrack_tpu_torch.ops.numerics import clip, round_bf16, xla_mean_var, xla_normalize
+from bundletrack_tpu_torch.kernels.norm_sums import xla_order_mean_var
+from bundletrack_tpu_torch.ops.numerics import clip, round_bf16, xla_normalize
 
 
 def same_pads(size: int, k: int, stride: int):
@@ -116,23 +116,22 @@ class GroupNorm(nn.Module):
 
 class XlaGroupNorm(GroupNorm):
     """Flax nn.GroupNorm(1, dtype=f32) as jax.jit computes it on the CPU:
-    the sum and the sum of squares in XLA's order (kernels/norm_sums.py),
-    mean and variance by `xla_mean_var`, the output fma(x - mean,
-    rsqrt(var + eps) * scale, bias).  XLA's rsqrt is approximate (about 1.2
-    ulp); torch's is not, and that is left unmatched.  With
-    `stats_of_rounded` the statistics read x rounded to bf16 while x itself
-    is normalised: in the jitted bf16 LF-Net the norm's input is a bf16
-    value whose rounding XLA keeps for the reduction only.  Inference only
-    (no gradient)."""
+    the sum and the sum of squares in XLA's order, mean and variance by
+    `xla_mean_var` (both `kernels/norm_sums.xla_order_mean_var`: one kernel
+    launch on the card), the output fma(x - mean, rsqrt(var + eps) * scale,
+    bias).  XLA's rsqrt is approximate (about 1.2 ulp); torch's is not, and
+    that is left unmatched.  The statistics read
+    x rounded to bf16 while x itself is normalised: in the jitted bf16
+    LF-Net, the one place this norm runs, its input is a bf16 value whose
+    rounding XLA keeps for the reduction only.  Inference only (no
+    gradient)."""
 
-    def __init__(self, c: int, eps: float = 1e-6, stats_of_rounded: bool = False):
+    def __init__(self, c: int, eps: float = 1e-6):
         super().__init__(c, num_groups=1, eps=eps)
-        self.stats_of_rounded = stats_of_rounded
 
     def forward(self, x):
         x = x.to(torch.float32)
-        s, s2 = xla_order_sums(x, round_bf16=self.stats_of_rounded)
-        mean, var = xla_mean_var(s, s2, x[0].numel())
+        mean, var = xla_order_mean_var(x, round_bf16=True)
         shape = (-1,) + (1,) * (x.dim() - 1)
         cshape = channel_shape(x)
         mul = torch.rsqrt(var + self.eps).view(shape) * self.scale.view(cshape)

@@ -28,7 +28,8 @@
    the norms' statistics in XLA's order, which the bf16 forward computes
    as the jitted JAX forward does) on every norm input of one 400x400 bf16
    forward, the descriptor's at 512 keypoints included, and of the fleet's
-   batched forward of 8 crops: its sums equal to its plain version's bit
+   batched forward of 8 crops: its sums (and, for the GroupNorms, the mean
+   and variance its last block derives) equal to its plain version's bit
    for bit, each shape timed beside torch.sum of the same tensor and its
    bounds (the dependent chain of adds, bytes, operations).  Every path
    that runs the bf16 LF-Net (phases 4, 5, 10, 11, 14) must launch it.
@@ -724,7 +725,8 @@ def sums_kernel_phase(seq, lf_cfg, lfnet, card: str) -> dict:
     """The sums kernel on every norm input of one 400x400 bf16 forward (the
     detector, the photo's and the score maps' instance norms, and the
     descriptor at 512 keypoints) and of the fleet's batched forward (8
-    crops): held to its plain version bit for bit, then timed (CUDA events)
+    crops): held to its plain version bit for bit (the GroupNorms' mean and
+    variance too), then timed (CUDA events)
     per shape beside torch.sum of the same tensor and its bounds.  Returns
     the kernels line's entry for SUMS_REPORTED_SHAPE (launches filled in
     later).  These comparison launches are not counted."""
@@ -732,6 +734,7 @@ def sums_kernel_phase(seq, lf_cfg, lfnet, card: str) -> dict:
 
     from bundletrack_tpu_torch.cardrun import cuda_median_ms, masked_crop
     from bundletrack_tpu_torch.kernels import norm_sums as ns
+    from bundletrack_tpu_torch.ops.numerics import xla_mean_var
 
     S = lf_cfg.frontend.input_size
     saved = ns.launches
@@ -745,15 +748,24 @@ def sums_kernel_phase(seq, lf_cfg, lfnet, card: str) -> dict:
     log(f"sums kernel: {n_single} launches in one {S}x{S} bf16 forward, {len(calls) - n_single} in the batched "
         f"forward of {FLEET_STREAMS} crops")
     cases = {}
-    for (x4, per_channel, round_bf16, shift), _ in calls:
+    n_stats = 0
+    for (x4, per_channel, round_bf16, shift), kwargs in calls:
         key = (tuple(x4.shape), per_channel, round_bf16, shift is not None)
         want = ns.xla_order_sums_reference(x4, per_channel, round_bf16, shift)
-        got = ns._launch(x4, per_channel, round_bf16, shift)
+        checks = [("sums", ns._launch(x4, per_channel, round_bf16, shift), want)]
+        if kwargs.get("stats"):  # GroupNorm's mean and variance, derived in the kernel's last block
+            n_stats += 1
+            checks.append(("mean and variance", ns._launch(x4, per_channel, round_bf16, shift, stats=True),
+                           xla_mean_var(*want, x4[0].numel())))
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-            raise AssertionError(f"sums kernel: {key} differs from its plain version (max |diff| {err:.3e})")
+        for what, got, ref in checks:
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+                raise AssertionError(f"sums kernel: {what} at {key} differ from the plain version's "
+                                     f"(max |diff| {err:.3e})")
         cases.setdefault(key, (x4, per_channel, round_bf16, shift))
+    log(f"sums kernel: equal bits on every call; {n_stats} of them also derived GroupNorm's mean and variance, "
+        f"equal to xla_mean_var of the plain sums")
     if SUMS_REPORTED_SHAPE not in {k[0] for k in cases}:
         raise AssertionError(f"sums kernel: no norm input of shape {SUMS_REPORTED_SHAPE} in the forward")
     entry = None

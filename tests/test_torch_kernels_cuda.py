@@ -218,14 +218,16 @@ def test_pairs_kernel_index_outside_the_table_is_a_cuda_error():
 
 # the sums kernel's shapes: the detector's norms at input 400 (one crop and
 # the fleet's 8), the descriptor's at 512 keypoints, the photo's and the
-# score maps' instance norms, and ragged shapes (an odd grid, 48 channels
-# in windows of 32 with "SAME" padding, the [B, F] form)
+# score maps' instance norms (windows padded on both sides, shifted), and
+# ragged shapes (an odd grid, 48 channels in windows of 32 with "SAME"
+# padding, the [B, F] form)
 SUMS_CASES = [
     ((1, 16, 400, 400), False, True, False), ((8, 16, 400, 400), False, True, False),
     ((512, 64, 16, 16), False, True, False), ((512, 128, 8, 8), False, True, False),
     ((512, 256, 4, 4), False, True, False), ((512, 512), False, True, False),
     ((1, 1, 400, 400), True, False, False), ((1, 1, 400, 400), True, False, True),
     ((1, 1, 800, 800), True, False, True), ((1, 1, 283, 283), True, False, True),
+    ((1, 1, 200, 200), True, False, True), ((1, 1, 68, 68), True, False, True),
     ((2, 16, 96, 96), False, False, False), ((3, 48, 7, 9), False, False, False), ((5, 96), False, False, False),
 ]
 
@@ -250,6 +252,22 @@ def test_sums_kernel_matches_plain_version_bit_for_bit(shape, per_channel, round
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b), (shape, a.cpu() - b)
     assert ns.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [c[0] for c in SUMS_CASES if c[2]], ids=str)
+def test_sums_kernel_mean_var_match_plain_version_bit_for_bit(shape):
+    """GroupNorm's mean and variance, derived in the kernel's last block
+    (`xla_order_mean_var`), equal `xla_mean_var` of the plain sums."""
+    from bundletrack_tpu_torch.kernels import norm_sums as ns
+    from bundletrack_tpu_torch.ops.numerics import xla_mean_var
+
+    _need_card()
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(sum(shape))) * 0.7 + 0.3
+    want = xla_mean_var(*ns.xla_order_sums_reference(x, round_bf16=True), x[0].numel())
+    got = ns.xla_order_mean_var(x.cuda(), round_bf16=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b), (shape, a.cpu() - b)
 
 
 @pytest.mark.cuda

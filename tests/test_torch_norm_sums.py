@@ -24,7 +24,7 @@ import torch
 
 from bundletrack_tpu.frontend import detector_ops as jops
 from bundletrack_tpu_torch.frontend.detector_ops import instance_norm
-from bundletrack_tpu_torch.kernels.norm_sums import xla_order_sums, xla_order_sums_reference
+from bundletrack_tpu_torch.kernels.norm_sums import xla_order_mean_var, xla_order_sums, xla_order_sums_reference
 from bundletrack_tpu_torch.ops.numerics import reciprocal_f32, round_bf16, xla_mean_var
 from bundletrack_tpu_torch.utils.flax_layers import XlaGroupNorm
 
@@ -67,16 +67,18 @@ def _jax_group_norm(x):
 
 def _group_norm_case(shape, exact):
     rng = np.random.RandomState(sum(shape))
-    x = (rng.randn(*shape) * 0.7 + 0.3).astype(np.float32)
+    # bf16 values: the norm's statistics read its input rounded to bf16,
+    # here the identity, so they are the jitted f32 Flax norm's
+    x = round_bf16(torch.from_numpy((rng.randn(*shape) * 0.7 + 0.3).astype(np.float32))).numpy()
     y, mean, var, p = _jax_group_norm(x)
     s, s2 = xla_order_sums(_nchw(x))
-    got_mean, got_var = xla_mean_var(s, s2, int(np.prod(shape[1:])))
-    if exact:
-        np.testing.assert_array_equal(got_mean.numpy(), mean)
-        np.testing.assert_array_equal(got_var.numpy(), var)
-    else:
-        np.testing.assert_allclose(got_mean.numpy(), mean, rtol=BOUND_RTOL)
-        np.testing.assert_allclose(got_var.numpy(), var, rtol=BOUND_RTOL)
+    for got_mean, got_var in (xla_mean_var(s, s2, int(np.prod(shape[1:]))), xla_order_mean_var(_nchw(x))):
+        if exact:
+            np.testing.assert_array_equal(got_mean.numpy(), mean)
+            np.testing.assert_array_equal(got_var.numpy(), var)
+        else:
+            np.testing.assert_allclose(got_mean.numpy(), mean, rtol=BOUND_RTOL)
+            np.testing.assert_allclose(got_var.numpy(), var, rtol=BOUND_RTOL)
     norm = XlaGroupNorm(shape[-1])
     with torch.no_grad():
         norm.scale.copy_(torch.from_numpy(np.array(p["scale"])))
