@@ -27,6 +27,12 @@ __device__ __forceinline__ void fence_mbar_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
+// one arrival (release: the thread's earlier memory accesses are ordered
+// before it, for a thread that waits on the phase)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // one arrival, announcing `bytes` of transactions for the current phase
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
@@ -52,6 +58,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "=r"(done)
         : "r"(addr), "r"(parity)
         : "memory");
+  } while (!done);
+}
+
+// the same wait with the non-blocking test_wait: the thread polls instead
+// of being suspended, so it resumes as soon as the phase completes (for a
+// warp that has nothing else to do and a scheduler of its own)
+__device__ __forceinline__ void mbar_wait_spin(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > 20000000000LL) __trap();
   } while (!done);
 }
 

@@ -19,8 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from bundletrack_tpu_torch.kernels.norm_sums import xla_order_sums
-from bundletrack_tpu_torch.ops.numerics import clip, flush_denormals, reciprocal_f32
+from bundletrack_tpu_torch.kernels.norm_sums import xla_order_instance_stats
+from bundletrack_tpu_torch.ops.numerics import clip, flush_denormals
 from bundletrack_tpu_torch.ops.topk import topk_stable
 
 
@@ -28,21 +28,24 @@ def instance_norm(x: torch.Tensor, dims=(2, 3), eps: float = 1e-3, xla_order: bo
     """Per-sample, per-channel normalization with the population variance.
     With `xla_order` (the bf16 LF-Net's photo and score maps, inference
     only) the mean and the variance are summed as jax.jit sums them on the CPU
-    (kernels/norm_sums.py): mean = sum * (1/n), variance = the sum of
-    (x - mean)^2 times 1/n."""
+    (`instance_norms`)."""
     if xla_order:
         if tuple(dims) != (2, 3):
             raise ValueError(f"instance_norm: XLA's order is over dims (2, 3), not {dims}")
-        B, C, H, W = x.shape
-        inv = reciprocal_f32(H * W)
-        s, _ = xla_order_sums(x, per_channel=True)
-        mu = s * inv
-        _, s2 = xla_order_sums(x, per_channel=True, shift=mu)
-        mu, var = mu.view(B, C, 1, 1), (s2 * inv).view(B, C, 1, 1)
-        return (x - mu) / torch.sqrt(var + eps)
+        return instance_norms([x], eps)[0]
     mu = torch.mean(x, dim=dims, keepdim=True)
     var = torch.mean((x - mu) ** 2, dim=dims, keepdim=True)
     return (x - mu) / torch.sqrt(var + eps)
+
+
+def instance_norms(xs, eps: float = 1e-3) -> list:
+    """instance_norm(x, xla_order=True) of each [B, C, H, W] map of xs, the
+    statistics of all of them from one call (kernels/norm_sums.
+    xla_order_instance_stats: one kernel launch on the card): mean = sum *
+    (1/n), variance = the sum of (x - mean)^2 times 1/n, both in XLA's order."""
+    means, variances = xla_order_instance_stats(xs)
+    return [(x - mu[:, :, None, None]) / torch.sqrt(var[:, :, None, None] + eps)
+            for x, mu, var in zip(xs, means, variances)]
 
 
 def _window_max(x: torch.Tensor, ksize: int) -> torch.Tensor:

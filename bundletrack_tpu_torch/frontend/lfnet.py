@@ -56,6 +56,7 @@ from bundletrack_tpu_torch.config import FrontendConfig
 from bundletrack_tpu_torch.frontend.detector_ops import (
     end_of_frame_mask,
     instance_norm,
+    instance_norms,
     non_max_suppression_mask,
     soft_argmax_2d,
     soft_max_and_argmax_1d,
@@ -226,8 +227,8 @@ class SimpleDesc(nn.Module):
             N = h.shape[0]
             part = xla_order_sums(h.reshape(-1, WINDOW), round_bf16=True)
             part = all_gather_cat(torch.stack(part).view(2, N, -1), group, dim=2)  # [2, N, windows]
-            s, s2 = xla_order_sums(part[0]), xla_order_sums(part[1])
-            mu, var = xla_mean_var(s[0], s2[0], n)
+            s = xla_order_sums(part.reshape(2 * N, -1))[0]  # rows 0..N-1 the sums, N..2N-1 the squares
+            mu, var = xla_mean_var(s[:N], s[N:], n)
             mul = torch.rsqrt(var + norm.eps)[:, None] * norm.scale
             h = xla_normalize(h, mu[:, None], mul, norm.bias)
         elif isinstance(norm, GroupNorm):  # GroupNorm(1): statistics over all 512 features
@@ -285,8 +286,8 @@ class LFNet(nn.Module):
         score_maps, ori_maps, feat_maps = self.detector(photos_n)
         scale_factors = self.detector.scale_values
 
-        scale_logits = torch.cat([resize_bilinear(instance_norm(sm, xla_order=c.bf16), (H, W))
-                                  for sm in score_maps], dim=1)
+        normed = instance_norms(score_maps) if c.bf16 else [instance_norm(sm) for sm in score_maps]
+        scale_logits = torch.cat([resize_bilinear(sm, (H, W)) for sm in normed], dim=1)
         heat = soft_nms_3d(scale_logits, ksize=c.sm_ksize, com_strength=c.com_strength)
         if c.soft_scale:
             max_heat, max_scale = soft_max_and_argmax_1d(

@@ -12,23 +12,33 @@ sequentially from 0 in row-major order, then the window partials
 sequentially in window row-major order; each square rounded to f32 before
 it is added.  `round_bf16` rounds every element to bf16 first (the jitted
 bf16 forward's statistics read rounded values), `shift` [G] subtracts its
-group's value first (the instance norm's variance).  Held bit for bit to
-jax.jit of Flax's GroupNorm statistics and of instance_norm on the LF-Net
-shapes (tests/test_torch_norm_sums.py); a 2x2 or 4x4 window grid (inputs
-64 and 128) is not XLA's order, and is bounded there instead.
+group's value first.  Held bit for bit to jax.jit of Flax's GroupNorm
+statistics and of instance_norm on the LF-Net shapes
+(tests/test_torch_norm_sums.py); a 2x2 or 4x4 window grid (inputs 64 and
+128) is not XLA's order, and is bounded there instead.
+`xla_order_mean_var` gives GroupNorm(1)'s mean and variance from the same
+sums, and `xla_order_instance_stats` the instance norm's mean (sum * f32(1 /
+(H * W))) and variance (the sum of (x - mean)^2 times the same) of every
+channel of a ragged list of maps.
 
-For a CUDA tensor the wrapper launches the kernel in csrc/xla_order_sums.cu
-(built with nvcc at first use, bound with ctypes) or raises.  The kernel's
-last block finds itself by a ticket counter, and each launch writes a
-workspace; the wrapper keeps both per device and stream, so launches on one
-stream share them in order and launches on two streams never do.
-`xla_order_mean_var` has that last block derive GroupNorm's mean and
-variance from the sums in the same launch.  The wrapper sends
-tensors on the CPU, and only those, to the plain version
-`xla_order_sums_reference`, which adds sequentially in f32 on the host
-(numpy's add.accumulate; torch.cumsum may accumulate in double).  Neither
-has a gradient: the kernel path refuses an input that requires one while
-autograd records.
+For a CUDA tensor each wrapper makes ONE launch of the kernel in
+csrc/xla_order_sums.cu (built with nvcc at first use, bound with ctypes) or
+raises: producer warps read NCHW and stage each window in chain order
+through a shared-memory ring, consumer lanes add one window's chain each;
+a block whose windows make whole groups (a group of at most 32 windows)
+adds their partials itself, else the last block adds every group's, and
+for `xla_order_mean_var` derives the mean and variance;
+`xla_order_instance_stats` runs its two passes (the sums, then the
+squares shifted by the means) in one cooperative launch, up to MAX_MAPS
+maps.  The kernel's blocks count on ticket counters (where a last block
+adds) and write a workspace; the wrapper keeps both per device and
+stream, so launches on one stream share them in order and launches on
+two streams never do.  The wrappers send tensors on the CPU, and only
+those, to the plain versions (`xla_order_sums_reference`, which adds
+sequentially in f32 on the host with numpy's add.accumulate, torch.cumsum
+may accumulate in double; `xla_order_instance_stats_reference`, which
+composes it as instance_norm did).  None has a gradient: the kernel path
+refuses an input that requires one while autograd records.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from bundletrack_tpu_torch.ops.numerics import reciprocal_f32, square_f32, xla_m
 
 SOURCE = "xla_order_sums.cu"
 WINDOW = 32  # XLA's window along each reduced axis
+MAX_MAPS = 16  # maps per launch of `xla_order_instance_stats`
 
 # kernel launches made through the wrapper (the main path's proof of route)
 launches = 0
@@ -115,17 +126,21 @@ def _library():
     )
     lib.xla_order_sums_workspace_floats.restype = ctypes.c_size_t
     lib.xla_order_sums_workspace_floats.argtypes = [ctypes.c_int] * 5
+    lib.xla_order_instance_stats_launch.restype = ctypes.c_int
+    lib.xla_order_instance_stats_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8
+    lib.xla_order_instance_workspace_floats.restype = ctypes.c_size_t
+    lib.xla_order_instance_workspace_floats.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.xla_order_sums_add_probe.restype = ctypes.c_int
     lib.xla_order_sums_add_probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     return lib
 
 
 class _StreamScratch:
-    """One stream's ticket counter (0 between launches: the last block of
-    each launch resets it) and workspace, grown to the largest launch."""
+    """One stream's ticket counters (0 between launches: the last block of
+    each launch resets them) and workspace, grown to the largest launch."""
 
     def __init__(self, device: torch.device):
-        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+        self.counter = torch.zeros(4, dtype=torch.int32, device=device)
         self.workspace = torch.empty(0, dtype=torch.float32, device=device)
 
     def workspace_ptr(self, floats: int) -> int:
@@ -145,10 +160,31 @@ def _workspace_floats(B: int, C: int, H: int, W: int, per_channel: bool) -> int:
     return n
 
 
+def _stream_scratch(dev: torch.device):
+    """(stream handle, its _StreamScratch) of dev's current stream."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _scratch.get((dev.index, stream))
+    if scratch is None:
+        scratch = _scratch[(dev.index, stream)] = _StreamScratch(dev)
+    return stream, scratch
+
+
+def _call(dev: torch.device, fn, *args):
+    """fn(*args) with dev current; raises on a CUDA error; counts the launch."""
+    global launches
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"xla_order_sums kernel launch failed: CUDA error {err}")
+    launches += 1
+
+
 def _launch(x4: torch.Tensor, per_channel: bool, round_bf16: bool, shift, stats: bool = False):
     """The kernel on x4: (sum, sum of squares), or with `stats` the (mean,
     variance) the last block derives from them."""
-    global launches
     B, C, H, W = x4.shape
     dev = x4.device
     G = B * C if per_channel else B
@@ -160,10 +196,7 @@ def _launch(x4: torch.Tensor, per_channel: bool, round_bf16: bool, shift, stats:
     if shift is not None:
         shift = shift.to(torch.float32).contiguous()
         shift_ptr = shift.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch = _scratch.get((dev.index, stream))
-    if scratch is None:
-        scratch = _scratch[(dev.index, stream)] = _StreamScratch(dev)
+    stream, scratch = _stream_scratch(dev)
     args = (x4.data_ptr(), B, C, H, W, int(per_channel), int(round_bf16), shift_ptr, out[0].data_ptr(),
             out[1].data_ptr(), scratch.workspace_ptr(_workspace_floats(B, C, H, W, per_channel)),
             scratch.counter.data_ptr())
@@ -171,14 +204,7 @@ def _launch(x4: torch.Tensor, per_channel: bool, round_bf16: bool, shift, stats:
     inv = reciprocal_f32(n)
     args += ((inv, square_f32(inv), out[2].data_ptr(), out[3].data_ptr()) if stats else (0.0, 0.0, None, None))
     args += (stream,)
-    if dev.index == torch.cuda.current_device():
-        err = _library().xla_order_sums_launch(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = _library().xla_order_sums_launch(*args)
-    if err != 0:
-        raise RuntimeError(f"xla_order_sums kernel launch failed: CUDA error {err}")
-    launches += 1
+    _call(dev, _library().xla_order_sums_launch, *args)
     return out[-2], out[-1]
 
 
@@ -222,6 +248,72 @@ def xla_order_mean_var(x: torch.Tensor, round_bf16: bool = False):
     if x4.device.type == "cpu":
         return xla_mean_var(*xla_order_sums_reference(x4, False, round_bf16), x4[0].numel())
     return _launch(x4, False, round_bf16, None, stats=True)
+
+
+def xla_order_instance_stats_reference(maps):
+    """Plain version of `xla_order_instance_stats`: per map, the sums in
+    XLA's order on the host, mean = sum * f32(1 / (H * W)), then the sums of
+    the squares shifted by it, times the same."""
+    means, variances = [], []
+    for x in maps:
+        B, C, H, W = x.shape
+        inv = reciprocal_f32(H * W)
+        s, _ = xla_order_sums_reference(x, per_channel=True)
+        mu = s * inv
+        _, s2 = xla_order_sums_reference(x, per_channel=True, shift=mu)
+        means.append(mu.view(B, C))
+        variances.append((s2 * inv).view(B, C))
+    return means, variances
+
+
+@functools.lru_cache(maxsize=256)
+def _instance_workspace_floats(shapes: tuple) -> int:
+    flat = (ctypes.c_int * (4 * len(shapes)))(*[d for s in shapes for d in s])
+    return _library().xla_order_instance_workspace_floats(len(shapes), flat)
+
+
+def _launch_instance(maps):
+    """The kernel's instance mode on maps (f32, contiguous, one device)."""
+    dev = maps[0].device
+    shapes = tuple(tuple(x.shape) for x in maps)
+    groups = [B * C for B, C, _, _ in shapes]
+    out = torch.empty((2, sum(groups)), dtype=torch.float32, device=dev)
+    if sum(groups):
+        n = len(maps)
+        stream, scratch = _stream_scratch(dev)
+        ws = scratch.workspace_ptr(_instance_workspace_floats(shapes))
+        xs = (ctypes.c_void_p * n)(*[x.data_ptr() for x in maps])
+        flat = (ctypes.c_int * (4 * n))(*[d for s in shapes for d in s])
+        invs = (ctypes.c_float * n)(*[reciprocal_f32(H * W) for _, _, H, W in shapes])
+        _call(dev, _library().xla_order_instance_stats_launch, n, xs, flat, invs, out[0].data_ptr(),
+              out[1].data_ptr(), ws, scratch.counter.data_ptr(), stream)
+    means = [m.view(B, C) for m, (B, C, _, _) in zip(out[0].split(groups), shapes)]
+    variances = [v.view(B, C) for v, (B, C, _, _) in zip(out[1].split(groups), shapes)]
+    return means, variances
+
+
+def xla_order_instance_stats(maps):
+    """The instance norms' statistics of a ragged list of maps, each f32
+    [B, C, H, W]: (means, variances), lists of [B, C] f32 tensors, as
+    jax.jit computes detector_ops.instance_norm's (module docstring).  On
+    the card all maps (at most MAX_MAPS, on one device) go through one
+    launch; on the CPU through the plain version.  No gradient."""
+    maps = list(maps)
+    if not maps:
+        return [], []
+    for x in maps:
+        if x.dim() != 4 or x.dtype != torch.float32:
+            raise ValueError(f"xla_order_instance_stats: a map is {x.dtype} {tuple(x.shape)}, not float32 "
+                             "[B, C, H, W]")
+        _check(x, False, None)
+    dev = maps[0].device
+    if any(x.device != dev for x in maps):
+        raise ValueError("xla_order_instance_stats: the maps lie on more than one device")
+    if dev.type == "cpu":
+        return xla_order_instance_stats_reference(maps)
+    if len(maps) > MAX_MAPS:
+        raise ValueError(f"xla_order_instance_stats: {len(maps)} maps, the kernel takes at most {MAX_MAPS}")
+    return _launch_instance([x.contiguous() for x in maps])
 
 
 def add_probe(n: int = 1 << 20, device=None):

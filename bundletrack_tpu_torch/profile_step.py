@@ -148,8 +148,8 @@ def lfnet_forward_cost(lfnet, crop) -> dict:
             "bound_ms": max(terms.values()), "bound_by": max(terms, key=terms.get)}
 
 
-# the sums kernel's two passes, as the profiler names them (csrc/xla_order_sums.cu)
-SUMS_KERNELS = ("window_layout_kernel", "window_chains_kernel")
+# the sums kernel as the profiler names it (csrc/xla_order_sums.cu: one launch per call)
+SUMS_KERNELS = ("xla_order_sums_kernel",)
 
 
 def lfnet_forward_report(lfnet, cfg, seq, card: str) -> dict:

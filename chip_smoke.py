@@ -28,11 +28,14 @@
    the norms' statistics in XLA's order, which the bf16 forward computes
    as the jitted JAX forward does) on every norm input of one 400x400 bf16
    forward, the descriptor's at 512 keypoints included, and of the fleet's
-   batched forward of 8 crops: its sums (and, for the GroupNorms, the mean
-   and variance its last block derives) equal to its plain version's bit
-   for bit, each shape timed beside torch.sum of the same tensor and its
-   bounds (the dependent chain of adds, bytes, operations).  Every path
-   that runs the bf16 LF-Net (phases 4, 5, 10, 11, 14) must launch it.
+   batched forward of 8 crops: at most 13 launches per forward (one per
+   GroupNorm, one for the photo's instance norm, one for the five score
+   maps'); its sums (and, for the GroupNorms, the mean and variance its
+   last block derives; for the instance norms their means and variances)
+   equal to its plain version's bit for bit, each shape timed beside
+   torch.sum of the same tensor (torch.var_mean per map) and its bounds
+   (the dependent chain of adds, bytes, operations).  Every path that runs
+   the bf16 LF-Net (phases 4, 5, 10, 11, 14) must launch it.
 5. CLI phase: writes the same 20 frames as a YCBInEOAT directory, writes a
    reference-format config at the default widths, runs
    `apps.run_tracking --frontend lfnet` on the card, scores the pose files
@@ -222,6 +225,13 @@ passes it needs for the LF-Net hard-suite row), with the same last line.
 
 runs step 1 and phase 11's eval suite alone (rendering its sequences
 itself), with the same last line.
+
+    python3 chip_smoke.py --vosmask-repeats N
+
+runs step 1, then tracks phase 10's orbit_vosmask on every draw set N
+times on the same rendered orbit and VOS masks, and counts the runs whose
+eight-set means miss a bar (the card's run-to-run variation), with the
+same last line.
 """
 
 from __future__ import annotations
@@ -679,6 +689,9 @@ SUMS_SOURCE = "bundletrack_tpu_torch/csrc/xla_order_sums.cu"
 SUMS_REPLACES = ("none (no TPU kernel): XLA's reduction order of the jitted LF-Net norms, "
                  "bundletrack_tpu/frontend/lfnet.py:73 and bundletrack_tpu/frontend/detector_ops.py:18")
 SUMS_REPORTED_SHAPE = (512, 64, 16, 16)  # the descriptor's first norm at 512 keypoints: the kernels line's shape
+# one launch per GroupNorm (7 in the detector, 4 in the descriptor) and one
+# per instance-norm list (the photo, the five score maps)
+SUMS_LAUNCHES_PER_FORWARD = 13
 ADD_CYCLES, SM_CLOCK_HZ = 4, 1.98e9  # an f32 add's dependent latency; the H100's boost clock
 F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
 # sums kernel launches per path that runs the bf16 LF-Net, each counted
@@ -721,15 +734,31 @@ def sums_bounds(shape, per_channel: bool, shift: bool) -> dict:
     }
 
 
+def instance_bounds(shapes) -> dict:
+    """Least times for one instance-statistics launch: the longest chain (per
+    map a window, then its group's partials, for the sums and again for the
+    shifted squares), the bytes (each map once, the means and variances) and
+    the operations (add; subtract, multiply, add per element) at the f32 peak."""
+    n = sum(int(np.prod(s)) for s in shapes)
+    G = sum(s[0] * s[1] for s in shapes)
+    return {
+        "chain": max(2 * sums_bounds(s, True, False)["chain"] for s in shapes),
+        "bytes": (4 * n + 8 * G) / HBM_BYTES_PER_S * 1e3,
+        "operations": 4 * n / F32_FLOP_PER_S * 1e3,
+    }
+
+
 def sums_kernel_phase(seq, lf_cfg, lfnet, card: str) -> dict:
     """The sums kernel on every norm input of one 400x400 bf16 forward (the
-    detector, the photo's and the score maps' instance norms, and the
-    descriptor at 512 keypoints) and of the fleet's batched forward (8
-    crops): held to its plain version bit for bit (the GroupNorms' mean and
-    variance too), then timed (CUDA events)
-    per shape beside torch.sum of the same tensor and its bounds.  Returns
-    the kernels line's entry for SUMS_REPORTED_SHAPE (launches filled in
-    later).  These comparison launches are not counted."""
+    detector's and the descriptor's GroupNorms at 512 keypoints, each one
+    launch, and the photo's and the score maps' instance norms, one launch
+    per list) and of the fleet's batched forward (8 crops): at most
+    SUMS_LAUNCHES_PER_FORWARD launches per forward; held to its plain
+    version bit for bit (the GroupNorms' mean and variance and the instance
+    norms' too), then timed (CUDA events) per shape beside torch.sum of the
+    same tensor (torch.var_mean per map for the instance norms) and its
+    bounds.  Returns the kernels line's entry for SUMS_REPORTED_SHAPE
+    (launches filled in later).  These comparison launches are not counted."""
     import torch
 
     from bundletrack_tpu_torch.cardrun import cuda_median_ms, masked_crop
@@ -740,13 +769,21 @@ def sums_kernel_phase(seq, lf_cfg, lfnet, card: str) -> dict:
     saved = ns.launches
     single = masked_crop(seq, 0, S)[..., None]
     fleet = torch.stack([masked_crop(seq, f, S) for f in range(FLEET_STREAMS)])[..., None]
-    with recorded_calls(ns, "_launch", args=True) as calls:
+    with recorded_calls(ns, "_launch", args=True) as calls, \
+            recorded_calls(ns, "_launch_instance", args=True) as instance_calls:
+        ns.launches = 0
         lfnet(single)
-        n_single = len(calls)
+        n_single, n_single_sums = ns.launches, len(calls)
+        ns.launches = 0
         lfnet(fleet)
+        n_fleet = ns.launches
     torch.cuda.synchronize()
-    log(f"sums kernel: {n_single} launches in one {S}x{S} bf16 forward, {len(calls) - n_single} in the batched "
-        f"forward of {FLEET_STREAMS} crops")
+    log(f"sums kernel: {n_single} launches in one {S}x{S} bf16 forward ({n_single_sums} sums, "
+        f"{n_single - n_single_sums} instance statistics), {n_fleet} in the batched forward of {FLEET_STREAMS} crops "
+        f"(at most {SUMS_LAUNCHES_PER_FORWARD} each)")
+    if max(n_single, n_fleet) > SUMS_LAUNCHES_PER_FORWARD:
+        raise AssertionError(f"sums kernel: {n_single} / {n_fleet} launches per forward, more than "
+                             f"{SUMS_LAUNCHES_PER_FORWARD}")
     cases = {}
     n_stats = 0
     for (x4, per_channel, round_bf16, shift), kwargs in calls:
@@ -764,8 +801,20 @@ def sums_kernel_phase(seq, lf_cfg, lfnet, card: str) -> dict:
                 raise AssertionError(f"sums kernel: {what} at {key} differ from the plain version's "
                                      f"(max |diff| {err:.3e})")
         cases.setdefault(key, (x4, per_channel, round_bf16, shift))
+    instance_cases = {}
+    for (maps,), _ in instance_calls:
+        got = ns._launch_instance(maps)
+        want = ns.xla_order_instance_stats_reference(maps)
+        torch.cuda.synchronize()
+        for what, g, w in zip(("means", "variances"), got, want):
+            if not all(torch.equal(a, b) for a, b in zip(g, w)):
+                err = max(float((a - b).abs().max()) for a, b in zip(g, w))
+                raise AssertionError(f"sums kernel: instance {what} of {[list(x.shape) for x in maps]} differ from "
+                                     f"the plain version's (max |diff| {err:.3e})")
+        instance_cases.setdefault(tuple(tuple(x.shape) for x in maps), maps)
     log(f"sums kernel: equal bits on every call; {n_stats} of them also derived GroupNorm's mean and variance, "
-        f"equal to xla_mean_var of the plain sums")
+        f"equal to xla_mean_var of the plain sums; {len(instance_calls)} instance-statistics launches equal to the "
+        f"plain version's means and variances")
     if SUMS_REPORTED_SHAPE not in {k[0] for k in cases}:
         raise AssertionError(f"sums kernel: no norm input of shape {SUMS_REPORTED_SHAPE} in the forward")
     entry = None
@@ -796,6 +845,13 @@ def sums_kernel_phase(seq, lf_cfg, lfnet, card: str) -> dict:
             }
             log(f"sums kernel at {list(key[0])}: plain version (host, sequential) {plain_ms:.4f} ms; the kernels "
                 f"line's bound counts bytes and operations, the dependent chain ({b['chain']:.4f} ms) is logged")
+    for shapes, maps in instance_cases.items():
+        ms = cuda_median_ms(lambda: ns._launch_instance(maps))
+        lib_ms = cuda_median_ms(lambda: [torch.var_mean(x, dim=(2, 3), unbiased=False) for x in maps])
+        b = instance_bounds(shapes)
+        log(f"sums kernel, instance statistics of {[list(s) for s in shapes]} in one launch: equal bits; {ms:.4f} ms, "
+            f"torch.var_mean per map {lib_ms:.4f} ms; bounds chain {b['chain']:.4f} ms, bytes {b['bytes']:.4f} ms, "
+            f"operations {b['operations']:.5f} ms; {100 * max(b.values()) / ms:.1f} % of the larger [{card}]")
     ns.launches = saved
     return entry
 
@@ -1926,6 +1982,74 @@ def log_long_mean(frontend: str, got: dict, jax_cpu: dict, r05) -> None:
         f"r05 {r05['long_horizon_128f'][frontend]['mean_adds_auc']})")
 
 
+def scatter_repeats_differ(runs: int = 20) -> int:
+    """How many of `runs` calls of the GN solve's scatter
+    (solver/residuals.scatter_blocks: index_add_ over repeated pair
+    indices, atomic f32 adds on the card) on one seeded input give other
+    bits than the first: the run-to-run variation the tracker carries."""
+    import torch
+
+    from bundletrack_tpu_torch.solver.residuals import scatter_blocks
+
+    gen = torch.Generator().manual_seed(0)
+    K, P = 16, 120
+    pi, pj = torch.triu_indices(K, K, 1)[:, :P]
+    blocks = [torch.randn(s, generator=gen).cuda() for s in [(P, 6, 6)] * 3 + [(P, 6)] * 2]
+    pi, pj = pi.cuda(), pj.cuda()
+    first = scatter_blocks(K, pi, pj, *blocks)
+    differ = 0
+    for _ in range(runs - 1):
+        again = scatter_blocks(K, pi, pj, *blocks)
+        differ += not all(torch.equal(a, b) for a, b in zip(first, again))
+    return differ
+
+
+def vosmask_repeats_phase(card: str, repeats: int) -> None:
+    """How often the card's run of orbit_vosmask misses its bars from run to
+    run on unchanged inputs: the orbit rendered once, its VOS masks once,
+    then every LONG_SEEDS draw set tracked `repeats` times; per set and run
+    the ADD-S AUC and FAIL frames, per repeat the eight-set means against
+    the bars (`vosmask_seeds_missed`); and whether the GN scatter repeats
+    its bits (`scatter_repeats_differ`)."""
+    from bundletrack_tpu_torch import fleet_bench
+    from bundletrack_tpu_torch.apps.run_vos import VOS_CKPT
+    from bundletrack_tpu_torch.cardrun import H, W, shipped_lfnet
+    from bundletrack_tpu_torch.config import SegmentationConfig
+    from bundletrack_tpu_torch.data.hard_world import long_hard_passes, render_hard_sequence
+    from bundletrack_tpu_torch.eval import replay
+    from bundletrack_tpu_torch.eval.hard_suite import LONG_PASS_SHAPES, generate_vos_masks, pass_report
+    from bundletrack_tpu_torch.models.vos import load_vos_npz
+
+    log(f"GN scatter (index_add_ on the card): {scatter_repeats_differ()} of 19 repeats differ in bits from the "
+        f"first [{card}]")
+    t0 = time.perf_counter()
+    args, kwargs = pass_specs(long_hard_passes, H=H, W=W, num_frames=LONG_FRAMES)["orbit"]
+    seq = render_hard_sequence(*args, **kwargs)
+    log(f"vosmask repeats: orbit rendered in {time.perf_counter() - t0:.1f} s")
+    jax_cpu, _ = long_references()
+    cfg = fleet_bench.bench_config(H, W)
+    lf_cfg = fleet_bench.lfnet_config(H, W)
+    lfnet = shipped_lfnet(lf_cfg)
+    vos_model, _ = load_vos_npz(VOS_CKPT)
+    masks = generate_vos_masks(seq, vos_model, SegmentationConfig().long_range(LONG_FRAMES), device="cuda")
+    seq_vos = seq._replace(mask=masks)
+    draws = {s: replay.load_jax_draws(cfg, LONG_FRAMES, s) for s in LONG_SEEDS}
+    missed_runs = 0
+    for r in range(repeats):
+        reports = {}
+        for s in LONG_SEEDS:
+            run = replay.replay_pass(lf_cfg, seq_vos, draws[s], lfnet, device="cuda")
+            reports[s] = {**pass_report(run.poses, run.statuses, seq, LONG_PASS_SHAPES["orbit"]),
+                          "finite": bool(np.all(np.isfinite(run.poses)))}
+        tracked = len(LONG_SEEDS) * (LONG_FRAMES - 1)
+        missed, lines = vosmask_seeds_missed(reports, jax_cpu["vosmask_seeds"], tracked, tracked)
+        missed_runs += bool(missed)
+        for line in lines:
+            log(f"vosmask repeats: run {r}: {line} [{card}]")
+        log(f"vosmask repeats: run {r}: bars " + ("missed: " + "; ".join(missed) if missed else "met"))
+    log(f"vosmask repeats: {missed_runs} of {repeats} runs missed a bar [{card}]")
+
+
 def long_suite_phase(hard_passes_16, card: str, phase_s: dict) -> int:
     """bench.py's long-horizon suite on the card, each frame on the JAX
     tracker's seed-0 draws: LF-Net on orbit, occluder, scale2x, then the
@@ -2750,8 +2874,9 @@ def mesh_only(seq, cfg, card: str) -> None:
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--mesh-only"], ["--long-only"], ["--eval-only"]):
-        print("usage: chip_smoke.py [--mesh-only | --long-only | --eval-only]", file=sys.stderr)
+    repeats = int(argv[1]) if len(argv) == 2 and argv[0] == "--vosmask-repeats" and argv[1].isdigit() else 0
+    if argv not in ([], ["--mesh-only"], ["--long-only"], ["--eval-only"]) and not repeats:
+        print("usage: chip_smoke.py [--mesh-only | --long-only | --eval-only | --vosmask-repeats N]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2776,9 +2901,11 @@ def main(argv) -> int:
     lf_cfg = with_lfnet(cfg)
     lfnet = shipped_lfnet(lf_cfg)
 
-    if argv in (["--mesh-only"], ["--long-only"], ["--eval-only"]):
+    if argv in (["--mesh-only"], ["--long-only"], ["--eval-only"]) or repeats:
         if argv == ["--mesh-only"]:
             mesh_only(seq, cfg, card)
+        elif repeats:
+            vosmask_repeats_phase(card, repeats)
         else:
             phase_s = {}
             if argv == ["--long-only"]:

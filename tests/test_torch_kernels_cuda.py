@@ -25,6 +25,8 @@ from bundletrack_tpu_torch.config import (
 )
 from bundletrack_tpu_torch.data import render_synthetic_sequence
 from bundletrack_tpu_torch.kernels import matching as km
+# every shape the bf16 LF-Net gives the sums kernel, and ragged ones
+from bundletrack_tpu_torch.sums_bench import CASES as SUMS_BENCH_CASES
 from bundletrack_tpu_torch.tracker.driver import Tracker
 
 DIST_ATOL = 1e-4  # the bf16-product dot summed in another order: ~1e-6 on O(1) distances
@@ -268,6 +270,100 @@ def test_sums_kernel_mean_var_match_plain_version_bit_for_bit(shape):
     got = ns.xla_order_mean_var(x.cuda(), round_bf16=True)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b), (shape, a.cpu() - b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,per_channel,round_bf16,shift", SUMS_BENCH_CASES, ids=str)
+def test_sums_kernel_every_launch_form_on_the_bench_cases(shape, per_channel, round_bf16, shift):
+    """Every launch form on every `sums_bench.CASES` shape, bit for bit with
+    the plain versions: the sums (twice: the counters were reset), a
+    GroupNorm's mean and variance (sample groups, no shift), and the
+    instance statistics (per-channel groups, no shift); one launch each."""
+    from bundletrack_tpu_torch.kernels import norm_sums as ns
+    from bundletrack_tpu_torch.ops.numerics import xla_mean_var
+
+    _need_card()
+    gen = torch.Generator().manual_seed(1 + sum(shape))
+    x = torch.randn(shape, generator=gen) * 0.7 + 0.3
+    G = shape[0] * (shape[1] if per_channel else 1)
+    sh = torch.randn(G, generator=gen) if shift else None
+    want = ns.xla_order_sums_reference(x, per_channel, round_bf16, sh)
+    xc = x.cuda()
+    for _ in range(2):
+        before = ns.launches
+        got = ns.xla_order_sums(xc, per_channel, round_bf16, None if sh is None else sh.cuda())
+        torch.cuda.synchronize()
+        assert ns.launches == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), (shape, a.cpu() - b)
+    if not per_channel and not shift:
+        got = ns.xla_order_mean_var(xc, round_bf16=round_bf16)
+        ref = xla_mean_var(*want, x[0].numel())
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu(), b), (shape, a.cpu() - b)
+    if per_channel and not shift:
+        got = ns.xla_order_instance_stats([xc])
+        ref = ns.xla_order_instance_stats_reference([x])
+        for a, b in zip(got, ref):
+            assert torch.equal(a[0].cpu(), b[0]), (shape, a[0].cpu() - b[0])
+
+
+def _score_maps(B, size=400):
+    """Maps of the score maps' sizes at `size` (x 0.5 ... 2), B samples each."""
+    gen = torch.Generator().manual_seed(B)
+    sizes = [int(size * f + 0.5) for f in (0.5, 2 ** -0.5, 1.0, 2 ** 0.5, 2.0)]
+    return [torch.randn((B, 1, n, n), generator=gen) * 0.5 - 0.2 for n in sizes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("maps", [
+    "photo", "five score maps", "fleet: 8 x five score maps", "ragged small",
+])
+def test_instance_stats_kernel_ragged_batches_bit_for_bit(maps):
+    """The instance norms' statistics in one launch: the photo, the five
+    score maps of a 400x400 forward, the fleet's 8 crops' five, and small
+    ragged maps (windows narrower than 32, several channels); bit for bit
+    with the plain version, twice (the counters were reset)."""
+    from bundletrack_tpu_torch.kernels import norm_sums as ns
+
+    _need_card()
+    gen = torch.Generator().manual_seed(3)
+    xs = {
+        "photo": lambda: [torch.rand((1, 1, 400, 400), generator=gen)],
+        "five score maps": lambda: _score_maps(1),
+        "fleet: 8 x five score maps": lambda: _score_maps(8),
+        "ragged small": lambda: [torch.randn(s, generator=gen) for s in
+                                 [(2, 3, 20, 45), (1, 1, 7, 9), (3, 1, 33, 31), (1, 2, 70, 5)]],
+    }[maps]()
+    want = ns.xla_order_instance_stats_reference(xs)
+    xc = [x.cuda() for x in xs]
+    for _ in range(2):
+        before = ns.launches
+        got = ns.xla_order_instance_stats(xc)
+        torch.cuda.synchronize()
+        assert ns.launches == before + 1
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                assert torch.equal(a.cpu(), b), (maps, a.cpu() - b)
+
+
+@pytest.mark.cuda
+def test_lfnet_bf16_forward_launches_the_sums_kernel_13_times():
+    """One 400x400 bf16 forward: 11 GroupNorms (7 detector, 4 descriptor)
+    and the photo's and the score maps' instance norms, one launch each."""
+    from bundletrack_tpu_torch.cardrun import masked_crop, render_main_sequence
+    from bundletrack_tpu_torch.frontend import lfnet
+    from bundletrack_tpu_torch.kernels import norm_sums as ns
+
+    _need_card()
+    cfg = FrontendConfig(kind="lfnet", input_size=400, top_k=512, bf16=True)
+    _, params = lfnet.load_params_npz("checkpoints/lfnet_params.npz", cfg)
+    apply = lfnet.make_lfnet_apply(cfg, params).to("cuda")
+    crop = masked_crop(render_main_sequence(1), 0, 400)[..., None].cuda()
+    apply(crop)
+    before = ns.launches
+    apply(crop)
+    assert ns.launches - before == 13
 
 
 @pytest.mark.cuda

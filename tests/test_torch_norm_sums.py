@@ -23,8 +23,13 @@ import pytest
 import torch
 
 from bundletrack_tpu.frontend import detector_ops as jops
-from bundletrack_tpu_torch.frontend.detector_ops import instance_norm
-from bundletrack_tpu_torch.kernels.norm_sums import xla_order_mean_var, xla_order_sums, xla_order_sums_reference
+from bundletrack_tpu_torch.frontend.detector_ops import instance_norm, instance_norms
+from bundletrack_tpu_torch.kernels.norm_sums import (
+    xla_order_instance_stats,
+    xla_order_mean_var,
+    xla_order_sums,
+    xla_order_sums_reference,
+)
 from bundletrack_tpu_torch.ops.numerics import reciprocal_f32, round_bf16, xla_mean_var
 from bundletrack_tpu_torch.utils.flax_layers import XlaGroupNorm
 
@@ -164,3 +169,62 @@ def test_rounding_shift_and_the_contract():
         xla_order_sums(x, per_channel=True, round_bf16=True, shift=shift)
     with pytest.raises(ValueError, match="shift must be"):
         xla_order_sums(x, shift=shift)
+
+
+def test_instance_stats_of_a_ragged_list_equal_the_per_map_norms():
+    """`xla_order_instance_stats` on a ragged list (one call: one launch on
+    the card) gives, map by map, the statistics that the sums in XLA's order
+    give one map at a time (sum, mean = sum * (1/n), shifted squares), and
+    `instance_norms` the outputs of instance_norm(xla_order=True) per map,
+    bit for bit."""
+    rng = np.random.RandomState(7)
+    maps = [torch.from_numpy(rng.uniform(-1, 2, shape).astype(np.float32))
+            for shape in [(2, 1, 48, 48), (1, 1, 68, 68), (2, 3, 37, 70), (1, 1, 200, 200), (3, 2, 5, 9)]]
+    means, variances = xla_order_instance_stats(maps)
+    normed = instance_norms(maps)
+    for x, mu, var, y in zip(maps, means, variances, normed):
+        B, C, H, W = x.shape
+        inv = reciprocal_f32(H * W)
+        s, _ = xla_order_sums(x, per_channel=True)
+        _, s2 = xla_order_sums(x, per_channel=True, shift=s * inv)
+        assert mu.shape == (B, C) and var.shape == (B, C)
+        assert torch.equal(mu.reshape(-1), s * inv) and torch.equal(var.reshape(-1), s2 * inv)
+        assert torch.equal(y, instance_norm(x, xla_order=True))
+    assert xla_order_instance_stats([]) == ([], [])
+    with pytest.raises(ValueError, match="float32"):
+        xla_order_instance_stats([maps[0].double()])
+    with pytest.raises(ValueError, match="float32"):
+        xla_order_instance_stats([maps[0][0]])
+    with pytest.raises(RuntimeError, match="no gradient"):
+        xla_order_instance_stats([maps[0].clone().requires_grad_()])
+
+
+def test_instance_stats_of_the_score_maps_equal_jax_jit():
+    """The five score maps of a 96x96 bf16 forward on the shipped weights
+    (48, 68, 96, 136 and 192 square), in one call: mean and variance bit for
+    bit those of the jitted detector_ops.instance_norm (48 is a 2x2 window
+    grid, not XLA's order: within 1e-6 there)."""
+    from bundletrack_tpu_torch.config import FrontendConfig
+    from bundletrack_tpu_torch.frontend import lfnet
+
+    net, _ = lfnet.load_params_npz("checkpoints/lfnet_params.npz",
+                                   FrontendConfig(kind="lfnet", input_size=96, bf16=True))
+    yy, xx = np.mgrid[0:96, 0:96]
+    photo = (0.5 + 0.3 * np.sin(xx / 7.0) * np.cos(yy / 5.0)
+             + 0.1 * np.random.RandomState(5).rand(96, 96)).astype(np.float32)
+    with torch.inference_mode():
+        score_maps, _, _ = net.detector(instance_norm(torch.from_numpy(photo)[None, None], xla_order=True))
+        means, variances = xla_order_instance_stats(score_maps)
+
+    def fn(a):
+        return jnp.mean(a, axis=(1, 2)), jnp.var(a, axis=(1, 2))
+
+    assert [sm.shape[-1] for sm in score_maps] == [48, 68, 96, 136, 192]
+    for sm, mu, var in zip(score_maps, means, variances):
+        want_mean, want_var = (np.asarray(t).ravel() for t in jax.jit(fn)(sm.numpy().transpose(0, 2, 3, 1)))
+        if sm.shape[-1] in IN_EXACT:
+            np.testing.assert_array_equal(mu.numpy().ravel(), want_mean)
+            np.testing.assert_array_equal(var.numpy().ravel(), want_var)
+        else:
+            np.testing.assert_allclose(mu.numpy().ravel(), want_mean, rtol=BOUND_RTOL)
+            np.testing.assert_allclose(var.numpy().ravel(), want_var, rtol=BOUND_RTOL)
