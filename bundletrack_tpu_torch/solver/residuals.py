@@ -4,9 +4,11 @@ Counterpart of bundletrack_tpu/solver/residuals.py (reference:
 src/cuda/Solver/SolverBundlingEquationsLie.h evalFDevice / evalMinusJTFDevice).
 Residual r = T_i p_i - T_j p_j with left-multiplicative updates
 T <- exp(delta) T, delta = [t, w], d(T p)/d delta = [ I | -hat(T p) ].
-Per-pair 6x6 blocks are scatter-added into [K, K, 6, 6]; repeated pair
-indices accumulate with index_add_, whose summation order on CUDA (atomic
-adds) varies from run to run (a few f32 ulps).
+Per-pair 6x6 blocks are summed into [K, K, 6, 6] by `scatter_blocks`
+(kernels/normal_blocks.py): each entry's terms in one fixed order, the CPU's
+and jax.jit's, on the card too, where index_add_'s atomics added in an order
+that changed from run to run.  The blocks themselves are einsum products,
+which the card sums in cuBLAS's order, not the CPU's.
 
 Every function takes leading batch axes (the fleet's stream axis) on the
 poses and the per-pair arrays; the pair indices [P] are shared by the batch.
@@ -14,13 +16,13 @@ poses and the per-pair arrays; the pair indices [P] are shared by the batch.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
 
 from bundletrack_tpu_torch.geometry.robust import huber
 from bundletrack_tpu_torch.geometry.se3 import hat, transform_points
+from bundletrack_tpu_torch.kernels.normal_blocks import scatter_blocks
 
 
 class SparseCorres(NamedTuple):
@@ -56,26 +58,6 @@ def _pair_blocks(r, qi, qj, w):
     gi = torch.einsum("...mai,...m,...ma->...i", Ji, w, r)
     gj = torch.einsum("...mai,...m,...ma->...i", Jj, w, r)
     return Hii, Hjj, Hij, gi, gj
-
-
-def scatter_blocks(K: int, pair_i, pair_j, Hii, Hjj, Hij, gi, gj):
-    """Accumulate per-pair blocks [..., P, 6, 6] into H [..., K, K, 6, 6] and
-    g [..., K, 6]; each batch entry sums its own pairs.  One index_add_ per
-    output over flat block indices (b*K + row)*K + col: on the card one
-    kernel each, where an index_put_ per block kind sorts its indices."""
-    batch = Hii.shape[:-3]
-    B = math.prod(batch)
-    blk = torch.cat([pair_i * (K + 1), pair_j * (K + 1), pair_i * K + pair_j, pair_j * K + pair_i])
-    row = torch.cat([pair_i, pair_j])
-    if B > 1:
-        first = torch.arange(B, device=Hii.device)[:, None]
-        blk = (first * (K * K) + blk).reshape(-1)
-        row = (first * K + row).reshape(-1)
-    vals = torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)], dim=-3).reshape(-1, 36)
-    H = torch.zeros((B * K * K, 36), dtype=Hii.dtype, device=Hii.device).index_add_(0, blk, vals)
-    g = torch.zeros((B * K, 6), dtype=gi.dtype, device=gi.device).index_add_(
-        0, row, torch.cat([gi, gj], dim=-2).reshape(-1, 6))
-    return H.reshape(*batch, K, K, 6, 6), g.reshape(*batch, K, 6)
 
 
 def sparse_normal_equations(poses, corres: SparseCorres, robust_delta: float, weight: float = 1.0):

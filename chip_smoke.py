@@ -20,7 +20,20 @@
    TrackerConfig (classical frontend, max_ba_frames=16 -> 120 BA pairs,
    M=256, 2000 RANSAC trials) and holds every frame to the pose bars of the
    test suite; the matcher's launch count must equal the number of tracked
-   frames.
+   frames.  Then it tracks the 20 frames again on a fresh Tracker with the
+   same inputs: every status and every pose bit-equal to the first run's.
+   Then the normal-blocks kernel (csrc/normal_blocks.cu: the Gauss-Newton
+   pair blocks summed into H and g in one fixed order, the CPU's): every
+   call of both runs (the sparse and the dense terms at K=16, P=120) held
+   bit for bit to its plain version on CPU copies of the same inputs, the
+   same on a graph of 40 pairs over 6 frames drawn with replacement and on
+   the 120 pairs with 7 repeated and 2 self pairs; 20 calls on one input
+   must give equal bits (`scatter_repeats_differ`); each shape timed with
+   CUDA events (median of 25 after warm-up) beside the plain version on
+   the card (index_add_, whose atomics add in a varying order) and
+   index_add_ alone, with its bytes and operations bounds.  Every path
+   whose GN solve runs (phases 3, 5, 7-16 and 19, every rank) must launch
+   it.
 4. LF-Net forward alone at 400x400 in bf16 with the shipped weights
    (checkpoints/lfnet_params.npz), CUDA events, median of 25 after warm-up;
    launches, device time, top kernels, the sums kernel's share and bound
@@ -72,7 +85,10 @@
    frame, not once per stream.  The matcher is held to its plain version
    on the fleet's own table, the 8 streams' K=16 BA tables stacked as
    [128, 512, 256] with 960 pairs (a `mutual` row may differ only at a
-   column near tie, as in phase 2), and timed there with its bound.  Then aggregate frames/s at S = 1, 4 and 8 on
+   column near tie, as in phase 2), and timed there with its bound; every
+   call of the normal-blocks kernel in the phase (the fleet's S=8 batched
+   solve among them) is held bit for bit to its plain version, and timed
+   at S=8.  Then aggregate frames/s at S = 1, 4 and 8 on
    bench.py's tracking configuration (`fleet_bench.fleet_row`).
    Then the join run: the same 8 streams and phases for 12 fleet frames,
    streams 4-7 reset to a fresh `init_fleet_state` before fleet frame 4
@@ -205,8 +221,9 @@
    card (world 2 or 4).  A rank's failure fails the run.
 20. Prints one JSON line describing every kernel (the matcher's launches
    summed over phases 3, 5, 7-15 and 19, every rank; the sums kernel's over
-   phases 4, 5, 10, 11 and 14), the card's line, and as its last line
-   {"ok": true, "device": {...}}.
+   phases 4, 5, 10, 11 and 14; the normal-blocks kernel's over phases 3, 5,
+   7-16 and 19, every rank, each logged per path), the card's line, and as
+   its last line {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and the last line is not
 printed.  Without a CUDA device, or without the package beside it, it fails.
@@ -228,10 +245,12 @@ itself), with the same last line.
 
     python3 chip_smoke.py --vosmask-repeats N
 
-runs step 1, then tracks phase 10's orbit_vosmask on every draw set N
-times on the same rendered orbit and VOS masks, and counts the runs whose
-eight-set means miss a bar (the card's run-to-run variation), with the
-same last line.
+runs step 1, then checks that the card repeats phase 10's orbit_vosmask:
+20 calls of the GN scatter on one input give equal bits, the VOS masks of
+the rendered orbit generated twice are equal, and every draw set tracked N
+times on them gives the same ADD-S AUC and FAIL frames each time (the
+poses' differing bits logged); it logs each run's eight-set means against
+the bars, and has the same last line.
 """
 
 from __future__ import annotations
@@ -269,8 +288,11 @@ DIST_ATOL = 1e-4  # the bf16-product dot summed in another order: ~1e-6 on O(1) 
 # this many per 61440 rows (P*N at P=120), each logged.
 MUTUAL_MAX_DIFF_ROWS = 8
 
-# a rerun of the same chain on the card: atomic scatter-adds sum in another
-# order from run to run (the fleet-vs-single tolerance below)
+# a rerun of the same chain on the card: the GN blocks are added in one
+# fixed order (csrc/normal_blocks.cu), so a rerun should repeat its bits (the
+# phase logs the byte-identical pose files); the bar stays the fleet-vs-single
+# tolerance below, as the card sums products and convolutions in cuBLAS's
+# and cuDNN's orders, not the CPU's
 RERUN_ROT_DEG, RERUN_TRANS_M = 0.01, 1e-4
 PNG_FILTERS = {"rgb": 4, "depth": 1, "masks": 1}  # Paeth for the colour frames, Sub for the rest
 
@@ -330,8 +352,9 @@ EVAL_RENDER_PROCESSES = 2  # beside the long suite's render pool: the 48-frame N
 
 FLEET_STREAMS, FLEET_FRAMES = 8, 12
 # stream 0 of the fleet against a single-stream Tracker with the same
-# phases: batched products and the solver's scatter-adds sum in another
-# order on the card (the tolerance of the port's trajectory against JAX's)
+# phases: batched products sum in cuBLAS's order for the batched shapes,
+# not the single stream's (the GN blocks themselves are added in one fixed
+# order); the tolerance of the port's trajectory against JAX's
 FLEET_VS_SINGLE_ROT_DEG, FLEET_VS_SINGLE_TRANS_M = 0.01, 1e-4
 FLEET_RATE_FRAMES = 5  # timed fleet frames per S in the frames/s rows
 # the join phase: streams 4-7 of the fleet phase's 8 are reset to a fresh
@@ -351,10 +374,11 @@ PCG_AB_FRAMES = 12  # frames per fresh tracker in the PCG / Cholesky turns
 SHIFT_M, SHIFT_LEFT_M = 0.004, 0.002
 POOL_FRAMES = 16  # the default BA pool: the colour term's and fusion's frames
 # the colour term on the card against the CPU, relative to the largest
-# |entry| of H, g and the cost: the products and the atomic scatter-adds sum
-# in another order, and a pixel whose projection lies within an ulp of a
-# half pixel or a gate can change its association (one of ~4000 pixels of
-# a pair); correspondence counts per pair may differ by as many
+# |entry| of H, g and the cost: the products sum in cuBLAS's order, not the
+# CPU's (the pair blocks are added in the CPU's order), and a pixel whose
+# projection lies within an ulp of a half pixel or a gate can change its
+# association (one of ~4000 pixels of a pair); correspondence counts per
+# pair may differ by as many
 DENSE_CARD_RTOL, DENSE_COUNT_DIFF = 1e-3, 4
 # fusion on the card against the CPU: the same elementwise f32 arithmetic,
 # the sums of <= 16 depths per pixel in another order (atomics)
@@ -660,6 +684,31 @@ def tracker_phase(seq, cfg, card: str, label: str = "tracker") -> tuple:
     return launches, med, poses
 
 
+def tracker_repeat(seq, cfg, first_poses, card: str) -> int:
+    """The tracker phase's frames again, on a fresh Tracker with the same
+    inputs: every status OK and every pose equal to the first run's bit for
+    bit.  Returns the matcher launches."""
+    from bundletrack_tpu_torch.cardrun import H, W
+    from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.tracker.driver import Tracker
+
+    tracker = Tracker(cfg, H, W)
+    init_pose = np.linalg.inv(seq.ob_in_cam[0])
+    km.launches = 0
+    poses, statuses = [], []
+    for f in range(len(seq.gray)):
+        out = tracker.process_frame(seq.gray[f], seq.depth[f], seq.mask[f], seq.K, init_pose)
+        poses.append(out.ob_in_cam.cpu().numpy())
+        statuses.append(int(out.status))
+    differ = [f for f, (a, b) in enumerate(zip(poses, first_poses)) if not np.array_equal(a, b)]
+    worst = max((float(np.abs(poses[f] - first_poses[f]).max()) for f in differ), default=0.0)
+    log(f"tracker, second run on a fresh Tracker: statuses {statuses}; {len(differ)} of {len(poses)} poses differ "
+        f"in bits from the first run's {differ} (max |entry diff| {worst:.3e}) [{card}]")
+    if differ or any(statuses):
+        raise AssertionError("tracker: the second run on the same inputs differs from the first")
+    return km.launches
+
+
 def lfnet_forward_phase(seq, lf_cfg, lfnet, card: str) -> float:
     """The LF-Net forward alone on the masked ROI crop of frame 0 at
     input_size (400x400): CUDA events, median of 25 runs after warm-up;
@@ -694,22 +743,27 @@ SUMS_REPORTED_SHAPE = (512, 64, 16, 16)  # the descriptor's first norm at 512 ke
 SUMS_LAUNCHES_PER_FORWARD = 13
 ADD_CYCLES, SM_CLOCK_HZ = 4, 1.98e9  # an f32 add's dependent latency; the H100's boost clock
 F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
-# sums kernel launches per path that runs the bf16 LF-Net, each counted
-# from 0 just before the path and read just after (`sums_counted`)
-SUMS_LAUNCHES = {}
+# launches per path of the sums kernel (the paths that run the bf16 LF-Net)
+# and of the normal-blocks kernel (the paths whose GN solve runs), each
+# counted from 0 just before the path and read just after (`counted`)
+LAUNCHES = {"sums": {}, "blocks": {}}
+_WITHOUT = {"sums": "the bf16 LF-Net ran without the sums kernel",
+            "blocks": "the GN solve ran without the normal-blocks kernel"}
 
 
 @contextlib.contextmanager
-def sums_counted(path: str):
-    """Counts the sums kernel's launches over one LF-Net path (from 0, read
-    after it) into SUMS_LAUNCHES; a path that launched it no time fails."""
-    from bundletrack_tpu_torch.kernels import norm_sums as ns
+def counted(kernel: str, path: str):
+    """Counts the launches of one kernel, "sums" or "blocks", over one path
+    (from 0, read after it) into LAUNCHES[kernel]; a path that launched it
+    no time fails."""
+    from bundletrack_tpu_torch.kernels import norm_sums, normal_blocks
 
-    ns.launches = 0
+    module = {"sums": norm_sums, "blocks": normal_blocks}[kernel]
+    module.launches = 0
     yield
-    SUMS_LAUNCHES[path] = ns.launches
-    if ns.launches == 0:
-        raise AssertionError(f"{path}: the bf16 LF-Net ran without the sums kernel")
+    LAUNCHES[kernel][path] = module.launches
+    if module.launches == 0:
+        raise AssertionError(f"{path}: {_WITHOUT[kernel]}")
 
 
 def sums_bounds(shape, per_channel: bool, shift: bool) -> dict:
@@ -853,6 +907,176 @@ def sums_kernel_phase(seq, lf_cfg, lfnet, card: str) -> dict:
             f"torch.var_mean per map {lib_ms:.4f} ms; bounds chain {b['chain']:.4f} ms, bytes {b['bytes']:.4f} ms, "
             f"operations {b['operations']:.5f} ms; {100 * max(b.values()) / ms:.1f} % of the larger [{card}]")
     ns.launches = saved
+    return entry
+
+
+# ---- the normal-blocks kernel ----------------------------------------------------
+
+BLOCKS_SOURCE = "bundletrack_tpu_torch/csrc/normal_blocks.cu"
+# what the normal-blocks kernel replaces: no TPU kernel; the XLA scatter-add
+# of the Gauss-Newton pair blocks in the JAX package
+BLOCKS_REPLACES = ("none (no TPU kernel): the XLA scatter-add of the Gauss-Newton pair blocks, "
+                   "bundletrack_tpu/solver/residuals.py:81 (scatter_blocks)")
+BLOCKS_REPEATS = 20  # calls on one input in `scatter_repeats_differ`
+
+
+def blocks_shape(args) -> tuple:
+    """(batch, K, P) of one recorded call of normal_blocks._launch."""
+    return tuple(args[3].shape[:-3]), args[0], args[1].shape[0]
+
+
+def blocks_bounds(batch, K: int, P: int) -> dict:
+    """Least times for one launch: the bytes (the five block arrays, the
+    pair indices, H and g, each once) and the f32 adds (per graph 4P 6x6
+    blocks and 2P 6-vectors) at the f32 peak."""
+    B = int(np.prod(batch))
+    floats = B * P * (3 * 36 + 2 * 6) + B * K * (K * 36 + 6)
+    return {"bytes": (4 * floats + 2 * 8 * P) / HBM_BYTES_PER_S * 1e3,
+            "operations": B * P * (4 * 36 + 2 * 6) / F32_FLOP_PER_S * 1e3}
+
+
+def device_us(fn, calls: int = 10) -> tuple:
+    """(device us, kernel launches) per call of fn, from the profiler."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in kernels) / calls, len(kernels) / calls
+
+
+def blocks_check(name: str, outs, calls) -> dict:
+    """Holds every recorded result of the normal-blocks kernel on a path
+    (`outs`, with their arguments `calls`) to the plain version on CPU
+    copies of the same inputs, bit for bit; returns the first call's
+    arguments per (batch, K, P)."""
+    import torch
+
+    from bundletrack_tpu_torch.kernels import normal_blocks as nb
+
+    torch.cuda.synchronize()
+    if not outs:
+        raise AssertionError(f"normal blocks [{name}]: the path made no call")
+    first, counts = {}, {}
+    for got, (args, _) in zip(outs, calls):
+        key = blocks_shape(args)
+        want = nb.scatter_blocks_reference(args[0], *(a.cpu() for a in args[1:]))
+        for what, a, b in zip(("H", "g"), got, want):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"normal blocks [{name}]: {what} of a call at (batch, K, P) {key} differs from "
+                                     f"the plain version's (max |diff| {float((a.cpu() - b).abs().max()):.3e})")
+        counts[key] = counts.get(key, 0) + 1
+        first.setdefault(key, args)
+    log(f"normal blocks [{name}]: {len(outs)} calls equal to the plain version bit for bit, " + ", ".join(
+        f"{n} at batch {list(b)} K={K} P={P}" for (b, K, P), n in counts.items()))
+    return first
+
+
+def blocks_timed(name: str, args, card: str) -> dict:
+    """The normal-blocks kernel on one recorded input, timed (CUDA events,
+    median of 25 after warm-up) beside its plain version on the card (the
+    cats, zero fills and index_add_ with atomics) and the library call
+    alone (index_add_ of the gathered rows into H and into g, the rows and
+    the outputs made beforehand), with its bounds; returns the kernels
+    line's entry (launches filled in later).  These launches are not
+    counted."""
+    import torch
+
+    from bundletrack_tpu_torch.cardrun import cuda_median_ms
+    from bundletrack_tpu_torch.kernels import normal_blocks as nb
+
+    saved = nb.launches
+    batch, K, P = blocks_shape(args)
+    ms = cuda_median_ms(lambda: nb._launch(*args))
+    plain_ms = cuda_median_ms(lambda: nb.scatter_blocks_reference(*args))
+    blk, vals, row, gvals = nb.flat_rows(*args)
+    B = int(np.prod(batch))
+    H0 = torch.zeros((B * K * K, 36), dtype=vals.dtype, device=vals.device)
+    g0 = torch.zeros((B * K, 6), dtype=gvals.dtype, device=gvals.device)
+    library_ms = cuda_median_ms(lambda: (H0.index_add_(0, blk, vals), g0.index_add_(0, row, gvals)))
+    device = {what: device_us(fn) for what, fn in (("kernel", lambda: nb._launch(*args)),
+                                                   ("plain", lambda: nb.scatter_blocks_reference(*args)))}
+    nb.launches = saved
+    b = blocks_bounds(batch, K, P)
+    term = max(b, key=b.get)
+    log(f"normal blocks [{name}] at batch {list(batch)} K={K} P={P}: {ms:.4f} ms (CUDA events around the wrapper), "
+        f"plain version on the card {plain_ms:.4f} ms, index_add_ alone {library_ms:.4f} ms; device time per call "
+        f"(profiler): kernel {device['kernel'][0]:.2f} us in {device['kernel'][1]:.0f} launch, plain version "
+        f"{device['plain'][0]:.2f} us in {device['plain'][1]:.0f} launches; bounds bytes {b['bytes']:.5f} ms, "
+        f"operations {b['operations']:.5f} ms; {100 * b[term] / ms:.2f} % of the larger [{card}]")
+    return {
+        "name": "normal_blocks",
+        "route": "cuda",
+        "source": BLOCKS_SOURCE,
+        "replaces": BLOCKS_REPLACES,
+        "launches": None,
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b[term],
+        "bound_by": term,
+        "library_ms": library_ms,
+    }
+
+
+def blocks_edge_case(card: str) -> None:
+    """The kernel on a small graph with repeated pairs and pairs whose i
+    equals j (K=6, 40 pairs drawn with replacement, and the 120 pairs of
+    16 frames with 7 repeated and 2 self pairs), bit for bit against the
+    plain version; these launches are not counted."""
+    import torch
+
+    from bundletrack_tpu_torch.kernels import normal_blocks as nb
+
+    saved = nb.launches
+    rng = np.random.RandomState(0)
+    i16, j16 = np.triu_indices(K_BA, k=1)
+    extra = rng.choice(len(i16), 7, replace=False)
+    graphs = {"K=6, 40 pairs with replacement": (6, rng.randint(0, 6, 40), rng.randint(0, 6, 40)),
+              "K=16, 120 pairs + 7 repeated + 2 self": (K_BA, np.concatenate([i16, i16[extra], [3, 11]]),
+                                                        np.concatenate([j16, j16[extra], [3, 11]]))}
+    for name, (K, i, j) in graphs.items():
+        P = len(i)
+        sizes = [(P, 6, 6)] * 3 + [(P, 6)] * 2
+        blocks = [torch.from_numpy((rng.choice([-1.0, 1.0], s) * 10.0 ** rng.uniform(-3, 3, s)).astype(np.float32))
+                  for s in sizes]
+        pi, pj = torch.from_numpy(i.astype(np.int64)), torch.from_numpy(j.astype(np.int64))
+        got = nb.scatter_blocks(K, pi.cuda(), pj.cuda(), *(b.cuda() for b in blocks))
+        want = nb.scatter_blocks_reference(K, pi, pj, *blocks)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+            raise AssertionError(f"normal blocks [{name}]: the kernel differs from the plain version")
+        log(f"normal blocks [{name}]: equal to the plain version bit for bit [{card}]")
+    nb.launches = saved
+
+
+def blocks_kernel_phase(outs, calls, card: str) -> dict:
+    """The normal-blocks kernel on the GN inputs of the tracker phase's
+    frames (every call, sparse and dense terms, bit for bit against the
+    plain version on CPU copies), on the repeated- and self-pair graphs,
+    and BLOCKS_REPEATS calls on one input that must repeat their bits;
+    each shape timed.  Returns the kernels line's entry, at the tracked
+    frame's K=16, P=120 (batch [1])."""
+    from bundletrack_tpu_torch.kernels import normal_blocks as nb
+
+    first = blocks_check("tracker phase", outs, calls)
+    blocks_edge_case(card)
+    saved = nb.launches
+    differ = scatter_repeats_differ()
+    nb.launches = saved
+    log(f"normal blocks: {differ} of {BLOCKS_REPEATS - 1} repeats on one input differ in bits from the first "
+        f"(scatter_repeats_differ) [{card}]")
+    if differ:
+        raise AssertionError(f"normal blocks: {differ} repeats on one input gave other bits")
+    key = ((1,), K_BA, P_PAIRS)  # the tracker steps a fleet of one stream
+    if key not in first:
+        raise AssertionError(f"normal blocks: no call at K={K_BA} P={P_PAIRS} in the tracker phase: {sorted(first)}")
+    entry = blocks_timed("tracker phase", first[key], card)
+    for other, args in first.items():
+        if other != key:
+            blocks_timed("tracker phase", args, card)
     return entry
 
 
@@ -1982,11 +2206,11 @@ def log_long_mean(frontend: str, got: dict, jax_cpu: dict, r05) -> None:
         f"r05 {r05['long_horizon_128f'][frontend]['mean_adds_auc']})")
 
 
-def scatter_repeats_differ(runs: int = 20) -> int:
+def scatter_repeats_differ(runs: int = BLOCKS_REPEATS) -> int:
     """How many of `runs` calls of the GN solve's scatter
-    (solver/residuals.scatter_blocks: index_add_ over repeated pair
-    indices, atomic f32 adds on the card) on one seeded input give other
-    bits than the first: the run-to-run variation the tracker carries."""
+    (solver/residuals.scatter_blocks: the normal-blocks kernel on the card)
+    on one seeded input give other bits than the first: 0 where each entry's
+    terms are added in one order (index_add_'s atomics gave 19 of 19)."""
     import torch
 
     from bundletrack_tpu_torch.solver.residuals import scatter_blocks
@@ -2005,12 +2229,13 @@ def scatter_repeats_differ(runs: int = 20) -> int:
 
 
 def vosmask_repeats_phase(card: str, repeats: int) -> None:
-    """How often the card's run of orbit_vosmask misses its bars from run to
-    run on unchanged inputs: the orbit rendered once, its VOS masks once,
-    then every LONG_SEEDS draw set tracked `repeats` times; per set and run
-    the ADD-S AUC and FAIL frames, per repeat the eight-set means against
-    the bars (`vosmask_seeds_missed`); and whether the GN scatter repeats
-    its bits (`scatter_repeats_differ`)."""
+    """Whether the card's run of orbit_vosmask repeats on unchanged inputs:
+    the GN scatter repeats its bits (`scatter_repeats_differ`, 0 of 19);
+    the orbit rendered once and its VOS masks generated twice, bit-equal;
+    then every LONG_SEEDS draw set tracked `repeats` times on the first
+    masks, each set's ADD-S AUC and FAIL frames equal in every repeat (the
+    poses' differing bits logged); per repeat the eight-set means against
+    the bars (`vosmask_seeds_missed`, logged).  A difference raises."""
     from bundletrack_tpu_torch import fleet_bench
     from bundletrack_tpu_torch.apps.run_vos import VOS_CKPT
     from bundletrack_tpu_torch.cardrun import H, W, shipped_lfnet
@@ -2020,8 +2245,11 @@ def vosmask_repeats_phase(card: str, repeats: int) -> None:
     from bundletrack_tpu_torch.eval.hard_suite import LONG_PASS_SHAPES, generate_vos_masks, pass_report
     from bundletrack_tpu_torch.models.vos import load_vos_npz
 
-    log(f"GN scatter (index_add_ on the card): {scatter_repeats_differ()} of 19 repeats differ in bits from the "
-        f"first [{card}]")
+    differ = scatter_repeats_differ()
+    log(f"GN scatter (the normal-blocks kernel on the card): {differ} of {BLOCKS_REPEATS - 1} repeats differ in "
+        f"bits from the first [{card}]")
+    if differ:
+        raise AssertionError(f"vosmask repeats: the GN scatter gave other bits on {differ} repeats")
     t0 = time.perf_counter()
     args, kwargs = pass_specs(long_hard_passes, H=H, W=W, num_frames=LONG_FRAMES)["orbit"]
     seq = render_hard_sequence(*args, **kwargs)
@@ -2031,23 +2259,44 @@ def vosmask_repeats_phase(card: str, repeats: int) -> None:
     lf_cfg = fleet_bench.lfnet_config(H, W)
     lfnet = shipped_lfnet(lf_cfg)
     vos_model, _ = load_vos_npz(VOS_CKPT)
-    masks = generate_vos_masks(seq, vos_model, SegmentationConfig().long_range(LONG_FRAMES), device="cuda")
+    seg_cfg = SegmentationConfig().long_range(LONG_FRAMES)
+    masks = generate_vos_masks(seq, vos_model, seg_cfg, device="cuda")
+    again = generate_vos_masks(seq, vos_model, seg_cfg, device="cuda")
+    mask_differ = [f for f in range(len(masks)) if not np.array_equal(masks[f], again[f])]
+    log(f"vosmask repeats: VOS masks generated twice: {len(mask_differ)} of {len(masks)} frames differ "
+        f"{mask_differ[:20]} [{card}]")
+    if mask_differ:
+        raise AssertionError("vosmask repeats: the VOS masks differ between two runs on the same frames")
+    del again
     seq_vos = seq._replace(mask=masks)
     draws = {s: replay.load_jax_draws(cfg, LONG_FRAMES, s) for s in LONG_SEEDS}
-    missed_runs = 0
+    missed_runs, first, unequal = 0, {}, []
     for r in range(repeats):
         reports = {}
         for s in LONG_SEEDS:
             run = replay.replay_pass(lf_cfg, seq_vos, draws[s], lfnet, device="cuda")
             reports[s] = {**pass_report(run.poses, run.statuses, seq, LONG_PASS_SHAPES["orbit"]),
                           "finite": bool(np.all(np.isfinite(run.poses)))}
+            if r == 0:
+                first[s] = (reports[s], np.asarray(run.poses))
+                continue
+            bits = int(np.sum(np.any(np.asarray(run.poses) != first[s][1], axis=(-2, -1))))
+            same = all(reports[s][k] == first[s][0][k] for k in ("adds_auc", "n_fail"))
+            log(f"vosmask repeats: run {r}: seed {s}: {bits} of {len(run.poses)} poses differ in bits from run 0; "
+                f"ADD-S AUC and FAIL frames {'equal' if same else 'DIFFER'}")
+            if not same:
+                unequal.append(f"run {r} seed {s}: ADD-S AUC {reports[s]['adds_auc']} FAIL {reports[s]['n_fail']} "
+                               f"against run 0's {first[s][0]['adds_auc']} / {first[s][0]['n_fail']}")
         tracked = len(LONG_SEEDS) * (LONG_FRAMES - 1)
         missed, lines = vosmask_seeds_missed(reports, jax_cpu["vosmask_seeds"], tracked, tracked)
         missed_runs += bool(missed)
         for line in lines:
             log(f"vosmask repeats: run {r}: {line} [{card}]")
         log(f"vosmask repeats: run {r}: bars " + ("missed: " + "; ".join(missed) if missed else "met"))
-    log(f"vosmask repeats: {missed_runs} of {repeats} runs missed a bar [{card}]")
+    log(f"vosmask repeats: {missed_runs} of {repeats} runs missed a bar; {len(unequal)} draw-set runs with another "
+        f"ADD-S AUC or FAIL count than run 0's [{card}]")
+    if unequal:
+        raise AssertionError("vosmask repeats: a draw set does not repeat: " + "; ".join(unequal))
 
 
 def long_suite_phase(hard_passes_16, card: str, phase_s: dict) -> int:
@@ -2540,6 +2789,7 @@ def mesh_tracker(rank: int, world: int, seq) -> dict:
     from bundletrack_tpu_torch.cardrun import H, W, timed_frames
     from bundletrack_tpu_torch.config import BundleConfig, TrackerConfig
     from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.kernels import normal_blocks as nb
     from bundletrack_tpu_torch.matching import pairwise
     from bundletrack_tpu_torch.parallel import make_mesh
     from bundletrack_tpu_torch.solver import gauss_newton
@@ -2551,9 +2801,9 @@ def mesh_tracker(rank: int, world: int, seq) -> dict:
     tracker = Tracker(cfg, H, W, mesh=mesh)
     with recorded_calls(pairwise, "fused_mutual_match_pairs") as outs, \
             recorded_calls(pairwise, "fused_mutual_match_pairs", args=True) as args:
-        km.launches = 0
+        km.launches = nb.launches = 0
         run = list(timed_frames(tracker, seq, range(len(seq.gray)), init_pose))
-        launches = km.launches
+        launches, blocks_launches = km.launches, nb.launches
     per = P_PAIRS // world
     want_i = np.triu_indices(K_BA, k=1)[0][rank * per:(rank + 1) * per]
     max_err, report = 0.0, io.StringIO()
@@ -2583,7 +2833,7 @@ def mesh_tracker(rank: int, world: int, seq) -> dict:
     ge = [ms for n, ms in calls if n > 1000]  # the H, g, cost all-reduce of each GN iteration
     return {"poses": np.stack([o.ob_in_cam.cpu().numpy() for _, o, _ in run]),
             "statuses": [int(o.status) for _, o, _ in run], "frame_ms": [ms for _, _, ms in run],
-            "launches": launches, "max_abs_err": max_err, "pairs": per,
+            "launches": launches, "blocks_launches": blocks_launches, "max_abs_err": max_err, "pairs": per,
             "gn_allreduce_ms": float(np.median(ge)), "gn_allreduces_per_frame": len(ge) / (MESH_COLLECTIVE_FRAMES - 1),
             "other_collectives_ms": float(np.median([ms for n, ms in calls if n <= 1000]))}
 
@@ -2597,6 +2847,7 @@ def mesh_fleet(rank: int, world: int, fleet, phases, axis_sizes: dict, S: int, F
     from bundletrack_tpu_torch.cardrun import H, W
     from bundletrack_tpu_torch.config import BundleConfig, TrackerConfig
     from bundletrack_tpu_torch.kernels import matching as km
+    from bundletrack_tpu_torch.kernels import normal_blocks as nb
     from bundletrack_tpu_torch.parallel import (
         fleet_observation,
         init_fleet_state,
@@ -2612,7 +2863,7 @@ def mesh_fleet(rank: int, world: int, fleet, phases, axis_sizes: dict, S: int, F
     rows = slice(mine.start, mine.stop)
     step, state = make_fleet_step(cfg, H, W, mesh=mesh), init_fleet_state(cfg, H, W, S, mesh=mesh)
     ip = torch.as_tensor(np.linalg.inv(fleet["ob_in_cam"][rows, 0]).astype(np.float32), device="cuda")
-    km.launches = 0
+    km.launches = nb.launches = 0
     poses, statuses, frame_ms = [], [], []
     for f in range(F):
         if join and f == JOIN_FRAME:
@@ -2630,7 +2881,7 @@ def mesh_fleet(rank: int, world: int, fleet, phases, axis_sizes: dict, S: int, F
         poses.append(out.ob_in_cam.cpu().numpy())
         statuses.append(out.status.cpu().numpy())
     return {"streams": (mine.start, mine.stop), "poses": np.stack(poses), "statuses": np.stack(statuses),
-            "frame_ms": frame_ms, "launches": km.launches}
+            "frame_ms": frame_ms, "launches": km.launches, "blocks_launches": nb.launches}
 
 
 def mesh_train(rank: int, world: int, lfnet_batch: dict, vos_clip: dict) -> dict:
@@ -2699,6 +2950,7 @@ def mesh_rank(rank: int, tmp: str, fleet_phases_cpu: list) -> None:
                                     FLEET_FRAMES, join=True),
            "train": mesh_train(rank, world, *batches)}
     out["launches"] = sum(out[k]["launches"] for k in ("tracker", "fleet", "fleet_2d", "fleet_join"))
+    out["blocks_launches"] = {k: out[k]["blocks_launches"] for k in ("tracker", "fleet", "fleet_2d", "fleet_join")}
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
 
 
@@ -2829,6 +3081,12 @@ def mesh_phase(inp: MeshInputs, backend: str, world: int, card: str, device=None
         log(f"{tag} {name}: {max(ms):.2f} ms per step on the slowest rank (CUDA events, median of "
             f"{TRAIN_TIMED_STEPS} after {TRAIN_WARMUP_STEPS}), per rank {[round(m, 2) for m in ms]}; one device "
             f"{one_device_ms[name.split()[0]]:.2f} ms on the same global batch [{card}; {where}]")
+    for r, rank_res in enumerate(res):
+        blocks = rank_res["blocks_launches"]
+        log(f"{tag}: rank {r}: normal-blocks kernel launches " + ", ".join(f"{k} {v}" for k, v in blocks.items()))
+        if not all(blocks.values()):
+            raise AssertionError(f"{tag}: rank {r}: a GN solve ran without the normal-blocks kernel: {blocks}")
+        LAUNCHES["blocks"][f"mesh (phase 19), {backend}, rank {r}"] = sum(blocks.values())
     return sum(r["launches"] for r in res)
 
 
@@ -2923,78 +3181,103 @@ def main(argv) -> int:
     sums_kernel = sums_kernel_phase(seq, lf_cfg, lfnet, card)
     phase_s = {}
     t0 = time.perf_counter()
-    classical_launches, _, classical_poses = tracker_phase(seq, cfg, card)
-    with sums_counted("lfnet forward (phase 4)"):
+    from bundletrack_tpu_torch.kernels import normal_blocks as nb
+
+    with counted("blocks", "classical tracker (phase 3, both runs)"), \
+            recorded_calls(nb, "_launch") as tracked_blocks, \
+            recorded_calls(nb, "_launch", args=True) as tracked_block_args:
+        classical_launches, _, classical_poses = tracker_phase(seq, cfg, card)
+        repeat_launches = tracker_repeat(seq, cfg, classical_poses, card)
+    blocks_kernel = blocks_kernel_phase(tracked_blocks, tracked_block_args, card)
+    del tracked_blocks, tracked_block_args
+    with counted("sums", "lfnet forward (phase 4)"):
         lfnet_forward_phase(seq, lf_cfg, lfnet, card)
-    with sums_counted("lfnet CLI (phase 5)"):
+    with counted("sums", "lfnet CLI (phase 5)"), counted("blocks", "lfnet CLI (phase 5)"):
         cli_launches = cli_phase(seq, card)
     phase_s["tracker, lfnet, cli"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     vos_phase(seq, card)
     phase_s["vos"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    vos_chain_launches = vos_chain_phase(seq, card)
+    with counted("blocks", "VOS chain (phase 7)"):
+        vos_chain_launches = vos_chain_phase(seq, card)
     phase_s["vos chain"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    nocs_launches = nocs_phase(seq, card)
+    with counted("blocks", "NOCS chain (phase 8)"):
+        nocs_launches = nocs_phase(seq, card)
     phase_s["nocs chain"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     fleet_seqs = render_fleet_sequences()
-    fleet_launches, fleet_ph, fleet_outs = fleet_phase(fleet_seqs, cfg, card)
+    with counted("blocks", "fleet (phase 9)"), recorded_calls(nb, "_launch") as fleet_blocks, \
+            recorded_calls(nb, "_launch", args=True) as fleet_block_args:
+        fleet_launches, fleet_ph, fleet_outs = fleet_phase(fleet_seqs, cfg, card)
+    fleet_block_inputs = blocks_check("fleet phase", fleet_blocks, fleet_block_args)
+    del fleet_blocks, fleet_block_args
+    blocks_timed("fleet phase", fleet_block_inputs[((FLEET_STREAMS,), K_BA, P_PAIRS)], card)
+    del fleet_block_inputs
     phase_s["fleet"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    join_launches, join_outs = join_phase(fleet_seqs, cfg, card, fleet_ph, fleet_outs)
+    with counted("blocks", "join (phase 9)"):
+        join_launches, join_outs = join_phase(fleet_seqs, cfg, card, fleet_ph, fleet_outs)
     phase_s["join"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     passes, fail_seq = render_new_phase_inputs()
     phase_s["hard world render"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    hard_launches = hard_world_phase(passes, card)
+    with counted("blocks", "hard world (phase 10)"):
+        hard_launches = hard_world_phase(passes, card)
     phase_s["hard world"] = time.perf_counter() - t0
     # the eval suite's sequences render in processes of their own while the
     # long suite runs
     with ProcessPoolExecutor(max_workers=EVAL_RENDER_PROCESSES, mp_context=multiprocessing.get_context("spawn")) as pool:
         eval_futures = submit_eval_renders(pool, eval_references()[0]["inputs"])
-        with sums_counted("long suite and lfnet hard suite (phase 10)"):
+        with counted("sums", "long suite and lfnet hard suite (phase 10)"), \
+                counted("blocks", "long suite and lfnet hard suite (phase 10)"):
             long_launches = long_suite_phase(passes, card, phase_s)
         del passes
         t0 = time.perf_counter()
         eval_seqs = {key: f.result() for key, f in eval_futures.items()}
         phase_s["eval suite render (left after the long suite)"] = time.perf_counter() - t0
-    with sums_counted("eval suite (phase 11)"):
+    with counted("sums", "eval suite (phase 11)"), counted("blocks", "eval suite (phase 11)"):
         eval_launches = eval_suite_phase(card, phase_s, eval_seqs)
     del eval_seqs
     t0 = time.perf_counter()
-    fail_launches = fail_path_phase(fail_seq, card)
+    with counted("blocks", "fail path (phase 12)"):
+        fail_launches = fail_path_phase(fail_seq, card)
     phase_s["fail path"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    verify_launches = verify_reject_phase(seq, card)
+    with counted("blocks", "verify reject (phase 13)"):
+        verify_launches = verify_reject_phase(seq, card)
     phase_s["verify reject"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    with sums_counted("lfnet fleet (phase 14)"):
+    with counted("sums", "lfnet fleet (phase 14)"), counted("blocks", "lfnet fleet (phase 14)"):
         lfnet_fleet_launches, _ = lfnet_fleet_phase(fleet_seqs, lf_cfg, lfnet, card)
     phase_s["lfnet fleet"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pcg_launches = pcg_tracker_phase(seq, cfg, card, classical_poses)
+    with counted("blocks", "pcg tracker (phase 15)"):
+        pcg_launches = pcg_tracker_phase(seq, cfg, card, classical_poses)
     phase_s["pcg tracker"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    photometric_fusion_phase(seq, card)
+    with counted("blocks", "photometric and fusion (phase 16)"):
+        photometric_fusion_phase(seq, card)
     phase_s["photometric and fusion"] = time.perf_counter() - t0
     from bundletrack_tpu_torch.kernels import matching as km
 
-    km.launches = 0
+    km.launches = nb.launches = 0
     t0 = time.perf_counter()
     lfnet_batch = train_lfnet_phase(seq, card)
     phase_s["train lfnet"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     vos_clip = train_vos_phase(seq, card)
     phase_s["train vos"] = time.perf_counter() - t0
-    if km.launches:  # the training paths reach no kernel of the port
-        raise AssertionError(f"training phases launched the matcher {km.launches} times")
+    if km.launches or nb.launches:  # the training paths reach neither kernel
+        raise AssertionError(f"training phases launched the matcher {km.launches} times and the normal-blocks "
+                             f"kernel {nb.launches} times")
     mesh_inputs = MeshInputs(seq, classical_poses, fleet_seqs, fleet_ph, fleet_outs, join_outs, lfnet_batch, vos_clip)
     mesh_launches = mesh_phases(mesh_inputs, card, phase_s)
     launches = {
-        "classical tracker phase": classical_launches, "lfnet CLI phase (filter 0 and filtered PNGs)": cli_launches,
+        "classical tracker phase": classical_launches, "classical tracker phase, second run": repeat_launches,
+        "lfnet CLI phase (filter 0 and filtered PNGs)": cli_launches,
         "VOS chain": vos_chain_launches, "NOCS chain": nocs_launches, "fleet": fleet_launches, "join": join_launches,
         "hard world": hard_launches, "long suite (with the lfnet hard suite)": long_launches,
         "eval suite (nocs)": eval_launches,
@@ -3002,13 +3285,16 @@ def main(argv) -> int:
         "lfnet fleet": lfnet_fleet_launches, "pcg tracker": pcg_launches, "mesh (all ranks)": mesh_launches,
     }
     kernel["launches"] = sum(launches.values())
-    sums_kernel["launches"] = sum(SUMS_LAUNCHES.values())
+    sums_kernel["launches"] = sum(LAUNCHES["sums"].values())
+    blocks_kernel["launches"] = sum(LAUNCHES["blocks"].values())
     log("matcher launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()) + "; training phases 0")
-    log("sums kernel launches: " + ", ".join(f"{k} {v}" for k, v in SUMS_LAUNCHES.items()))
+    log("sums kernel launches: " + ", ".join(f"{k} {v}" for k, v in LAUNCHES["sums"].items()))
+    log("normal-blocks kernel launches: " + ", ".join(f"{k} {v}" for k, v in LAUNCHES["blocks"].items())
+        + "; training phases 0")
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; whole script {time.perf_counter() - t_main:.1f}")
 
-    log(json.dumps({"kernels": [kernel, sums_kernel]}))
+    log(json.dumps({"kernels": [kernel, sums_kernel, blocks_kernel]}))
     log(card)
     log(json.dumps({
         "ok": True,

@@ -397,10 +397,69 @@ def test_lfnet_bf16_forward_on_the_card_matches_the_cpu(size):
     assert found >= 0.95 * total, (found, total)
 
 
+def _normal_blocks_case(case):
+    """(K, pair_i, pair_j, [Hii, Hjj, Hij, gi, gj]) of a named case, CPU
+    tensors; entries of either sign with magnitude 10^U(-3, 3)."""
+    rng = np.random.RandomState(len(case))
+    batch = ()
+    if case in ("all_pairs_K16", "eight_graphs_K16"):
+        K, (i, j) = 16, np.triu_indices(16, k=1)
+        batch = (8,) if case == "eight_graphs_K16" else ()
+    elif case == "repeated_and_self_pairs":  # the 120 pairs, 7 of them again, two with i == j
+        K, (i, j) = 16, np.triu_indices(16, k=1)
+        extra = rng.choice(120, 7, replace=False)
+        i, j = np.concatenate([i, i[extra], [3, 11]]), np.concatenate([j, j[extra], [3, 11]])
+    elif case == "reversed_and_repeated_K6":
+        K, i, j = 6, rng.randint(0, 6, 40), rng.randint(0, 6, 40)
+    else:  # one_pair_K2
+        K, i, j = 2, np.array([0]), np.array([1])
+    P = len(i)
+
+    def draw(shape):
+        return torch.from_numpy((rng.choice([-1.0, 1.0], shape) * 10.0 ** rng.uniform(-3, 3, shape)).astype(np.float32))
+
+    blocks = [draw((*batch, P, 6, 6)) for _ in range(3)] + [draw((*batch, P, 6)) for _ in range(2)]
+    return K, torch.from_numpy(i.astype(np.int64)), torch.from_numpy(j.astype(np.int64)), blocks
+
+
+NORMAL_BLOCKS_CASES = ["all_pairs_K16", "repeated_and_self_pairs", "reversed_and_repeated_K6", "one_pair_K2",
+                       "eight_graphs_K16"]
+
+
 @pytest.mark.cuda
-def test_tracker_on_the_card_matches_the_cpu():
-    """The same frames and RANSAC phases through the step on both devices."""
+@pytest.mark.parametrize("case", NORMAL_BLOCKS_CASES)
+def test_normal_blocks_kernel_matches_plain_version_bit_for_bit(case):
+    """One launch per call, and the plain version's bits on CPU copies of
+    the same inputs (both add each entry's terms in one order)."""
+    from bundletrack_tpu_torch.kernels import normal_blocks as nb
+
     _need_card()
+    K, pi, pj, blocks = _normal_blocks_case(case)
+    before = nb.launches
+    H, g = nb.scatter_blocks(K, pi.cuda(), pj.cuda(), *(b.cuda() for b in blocks))
+    torch.cuda.synchronize()
+    assert nb.launches == before + 1
+    rH, rg = nb.scatter_blocks_reference(K, pi, pj, *blocks)
+    assert torch.equal(H.cpu(), rH) and torch.equal(g.cpu(), rg)
+
+
+@pytest.mark.cuda
+def test_normal_blocks_kernel_repeats_its_bits():
+    """20 calls on one input (the fleet's 8 graphs) give equal bits."""
+    from bundletrack_tpu_torch.kernels import normal_blocks as nb
+
+    _need_card()
+    K, pi, pj, blocks = _normal_blocks_case("eight_graphs_K16")
+    args = (K, pi.cuda(), pj.cuda(), *(b.cuda() for b in blocks))
+    first = nb.scatter_blocks(*args)
+    for _ in range(19):
+        again = nb.scatter_blocks(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _track_five_frames(device):
+    """The 5-frame tracker run of the card tests on `device`: every frame's
+    pose [5, 4, 4] (numpy) and status."""
     H, W = 120, 160
     cfg = TrackerConfig(
         bundle=BundleConfig(max_ba_frames=4), keyframe=KeyframeConfig(pool_size=8, min_rot=5.0),
@@ -410,17 +469,46 @@ def test_tracker_on_the_card_matches_the_cpu():
     seq = render_synthetic_sequence(num_frames=5, H=H, W=W, orbit_deg_per_frame=4.0)
     rng = np.random.RandomState(0)
     phases = [(rng.randint(0, 128, (3, 2)), rng.randint(0, 128, (6, 3, 2))) for _ in range(5)]
+    trk = Tracker(cfg, H, W, device=device)
+    poses, statuses = [], []
+    for f in range(5):
+        out = trk.process_frame(seq.gray[f], seq.depth[f], seq.mask[f], seq.K,
+                                np.linalg.inv(seq.ob_in_cam[0]), phases=phases[f])
+        poses.append(out.ob_in_cam.cpu().numpy())
+        statuses.append(int(out.status))
+    return np.stack(poses), statuses
+
+
+@pytest.mark.cuda
+def test_tracker_on_the_card_matches_the_cpu():
+    """The same frames and RANSAC phases through the step on both devices."""
+    _need_card()
     poses = {}
     for device in ("cuda", "cpu"):
-        trk = Tracker(cfg, H, W, device=device)
-        for f in range(5):
-            out = trk.process_frame(seq.gray[f], seq.depth[f], seq.mask[f], seq.K,
-                                    np.linalg.inv(seq.ob_in_cam[0]), phases=phases[f])
-            assert int(out.status) == 0
-        poses[device] = out.ob_in_cam.cpu().numpy()
-    # f32 on both devices; sums run in other orders (scatter-adds on CUDA
-    # vary from run to run), so 1e-4 m / 1e-4 on rotation entries
+        all_poses, statuses = _track_five_frames(device)
+        assert statuses == [0] * 5
+        poses[device] = all_poses[-1]
+    # f32 on both devices; the card sums the GN blocks' products and the
+    # convolutions in cuBLAS's and cuDNN's orders, not the CPU's (the blocks
+    # themselves are added in the CPU's order), so 1e-4 m / 1e-4 on rotation
+    # entries
     np.testing.assert_allclose(poses["cuda"], poses["cpu"], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_tracker_on_the_card_repeats_bit_for_bit():
+    """The 5-frame card run twice on fresh trackers: equal statuses and
+    pose bits (the GN blocks summed in a fixed order), every tracked frame
+    through the normal-blocks kernel."""
+    from bundletrack_tpu_torch.kernels import normal_blocks as nb
+
+    _need_card()
+    before = nb.launches
+    first = _track_five_frames("cuda")
+    assert nb.launches > before
+    again = _track_five_frames("cuda")
+    assert first[1] == again[1] == [0] * 5
+    assert np.array_equal(first[0], again[0])
 
 
 @pytest.mark.cuda
@@ -458,7 +546,8 @@ def test_lfnet_fleet_step_on_the_card_matches_the_cpu():
         if device == "cuda":
             assert km.launches - before == F - 1  # one matcher launch per tracked fleet frame
         poses[device] = out.ob_in_cam.cpu().numpy()
-    # f32 on both devices; cuDNN and the scatter-adds sum in other orders
+    # f32 on both devices; the card sums the convolutions and the GN blocks'
+    # products in cuDNN's and cuBLAS's orders, not the CPU's
     np.testing.assert_allclose(poses["cuda"], poses["cpu"], atol=1e-4)
 
 
