@@ -17,8 +17,10 @@ of the JAX package's scatter_blocks gives, bit for bit
 (tests/test_torch_normal_blocks.py).  On the card index_add_ adds with
 atomics in an order that changes from run to run; for a CUDA tensor the
 wrapper instead makes ONE launch of the kernel in csrc/normal_blocks.cu
-(built with nvcc at first use, bound with ctypes), which adds each entry's
-terms in the same order, or raises: no fallback.  Tensors on the CPU, and
+(built with nvcc at first use, bound with ctypes; one block per 6x6 output
+block lists its terms once with warp ballots and adds them from shared
+memory), which adds each entry's terms in the same order, or raises: no
+fallback.  Tensors on the CPU, and
 only those, go to the plain version.  No gradient: an input that requires
 one while autograd records raises (the solver needs none).
 """
@@ -80,12 +82,17 @@ def _launch(K: int, pair_i, pair_j, Hii, Hjj, Hij, gi, gj):
     batch = Hii.shape[:-3]
     B, P = math.prod(batch), Hii.shape[-3]
     dev = Hii.device
+    # two allocations: on the card's host one allocation split into two
+    # views took longer (blocks_bench's host line)
     H = torch.empty((*batch, K, K, 6, 6), dtype=torch.float32, device=dev)
     g = torch.empty((*batch, K, 6), dtype=torch.float32, device=dev)
     if H.numel() == 0:
         return H, g
-    args = (B, K, P, *(t.data_ptr() for t in (pair_i, pair_j, Hii, Hjj, Hij, gi, gj, H, g)),
-            torch.cuda.current_stream(dev).cuda_stream)
+    # the raw handle of PyTorch's current stream on the device (what
+    # torch.cuda.current_stream(dev).cuda_stream gives, without building a
+    # Stream object; Triton's launcher reads it the same way)
+    args = (B, K, P, pair_i.data_ptr(), pair_j.data_ptr(), Hii.data_ptr(), Hjj.data_ptr(), Hij.data_ptr(),
+            gi.data_ptr(), gj.data_ptr(), H.data_ptr(), g.data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index))
     if dev.index == torch.cuda.current_device():
         err = _library().normal_blocks_launch(*args)
     else:
@@ -97,27 +104,32 @@ def _launch(K: int, pair_i, pair_j, Hii, Hjj, Hij, gi, gj):
     return H, g
 
 
+def _index(t):
+    """`t` as the kernel takes pair indices: int64, contiguous."""
+    return t if t.dtype == torch.int64 and t.is_contiguous() else t.to(torch.int64).contiguous()
+
+
 def scatter_blocks(K: int, pair_i, pair_j, Hii, Hjj, Hij, gi, gj):
     """H [..., K, K, 6, 6] and g [..., K, 6] from the per-pair blocks
     (module docstring).  CUDA tensors go to the kernel (f32, one launch, or
     raise); CPU tensors to the plain version."""
     tensors = (Hii, Hjj, Hij, gi, gj)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if torch.is_grad_enabled() and (Hii.requires_grad or Hjj.requires_grad or Hij.requires_grad
+                                    or gi.requires_grad or gj.requires_grad):
         raise RuntimeError("scatter_blocks has no gradient: call it under torch.no_grad() or "
                            "torch.inference_mode() (the Gauss-Newton solve needs none)")
-    P = pair_i.shape[-1]
-    batch = Hii.shape[:-3]
-    if (pair_i.dim() != 1 or tuple(pair_j.shape) != (P,) or any(tuple(t.shape) != (*batch, P, 6, 6)
-                                                                for t in (Hii, Hjj, Hij))
-            or any(tuple(t.shape) != (*batch, P, 6) for t in (gi, gj))):
+    hs = Hii.shape
+    if (pair_i.dim() != 1 or pair_j.shape != pair_i.shape or hs[-3:] != (pair_i.shape[0], 6, 6)
+            or Hjj.shape != hs or Hij.shape != hs or gi.shape != hs[:-1] or gj.shape != hs[:-1]):
         raise ValueError(f"scatter_blocks: pairs {tuple(pair_i.shape)} {tuple(pair_j.shape)} and blocks "
                          f"{[tuple(t.shape) for t in tensors]} are not [P] and [..., P, 6, 6] / [..., P, 6]")
     dev = Hii.device
-    if any(t.device != dev for t in (pair_i, pair_j, *tensors)):
+    if not dev == pair_i.device == pair_j.device == Hjj.device == Hij.device == gi.device == gj.device:
         raise ValueError("scatter_blocks: the pairs and blocks lie on more than one device")
     if dev.type == "cpu":
         return scatter_blocks_reference(K, pair_i, pair_j, Hii, Hjj, Hij, gi, gj)
-    if any(t.dtype != torch.float32 for t in tensors):
+    f32 = torch.float32
+    if Hii.dtype is not f32 or Hjj.dtype is not f32 or Hij.dtype is not f32 or gi.dtype is not f32 \
+            or gj.dtype is not f32:
         raise ValueError(f"scatter_blocks: the kernel takes float32 blocks, not {[t.dtype for t in tensors]}")
-    return _launch(K, pair_i.to(torch.int64).contiguous(), pair_j.to(torch.int64).contiguous(),
-                   *(t.contiguous() for t in tensors))
+    return _launch(K, _index(pair_i), _index(pair_j), *(t.contiguous() for t in tensors))

@@ -26,12 +26,15 @@
    pair blocks summed into H and g in one fixed order, the CPU's): every
    call of both runs (the sparse and the dense terms at K=16, P=120) held
    bit for bit to its plain version on CPU copies of the same inputs, the
-   same on a graph of 40 pairs over 6 frames drawn with replacement and on
-   the 120 pairs with 7 repeated and 2 self pairs; 20 calls on one input
-   must give equal bits (`scatter_repeats_differ`); each shape timed with
-   CUDA events (median of 25 after warm-up) beside the plain version on
-   the card (index_add_, whose atomics add in a varying order) and
-   index_add_ alone, with its bytes and operations bounds.  Every path
+   same on a graph of 40 pairs over 6 frames drawn with replacement, on
+   the 120 pairs with 7 repeated and 2 self pairs, on 300 pairs of two
+   frames (one output block with more terms than the kernel lists at a
+   time) and on 1500 pairs over 16 frames (more than one tile of pair
+   indices); 20 calls on one input must give equal bits
+   (`scatter_repeats_differ`); each shape timed with CUDA events (median
+   of 25 after warm-up) and the profiler's device us beside the plain
+   version on the card (index_add_, whose atomics add in a varying order)
+   and index_add_ alone, with its bytes and operations bounds.  Every path
    whose GN solve runs (phases 3, 5, 7-16 and 19, every rank) must launch
    it.
 4. LF-Net forward alone at 400x400 in bf16 with the shipped weights
@@ -977,10 +980,11 @@ def blocks_check(name: str, outs, calls) -> dict:
 
 def blocks_timed(name: str, args, card: str) -> dict:
     """The normal-blocks kernel on one recorded input, timed (CUDA events,
-    median of 25 after warm-up) beside its plain version on the card (the
-    cats, zero fills and index_add_ with atomics) and the library call
-    alone (index_add_ of the gathered rows into H and into g, the rows and
-    the outputs made beforehand), with its bounds; returns the kernels
+    median of 25 after warm-up, and device us from the profiler) beside its
+    plain version on the card (the cats, zero fills and index_add_ with
+    atomics) and the library call alone (index_add_ of the gathered rows
+    into H and into g, the rows and the outputs made beforehand), with its
+    bounds; returns the kernels
     line's entry (launches filled in later).  These launches are not
     counted."""
     import torch
@@ -996,16 +1000,19 @@ def blocks_timed(name: str, args, card: str) -> dict:
     B = int(np.prod(batch))
     H0 = torch.zeros((B * K * K, 36), dtype=vals.dtype, device=vals.device)
     g0 = torch.zeros((B * K, 6), dtype=gvals.dtype, device=gvals.device)
-    library_ms = cuda_median_ms(lambda: (H0.index_add_(0, blk, vals), g0.index_add_(0, row, gvals)))
+    library = lambda: (H0.index_add_(0, blk, vals), g0.index_add_(0, row, gvals))  # noqa: E731
+    library_ms = cuda_median_ms(library)
     device = {what: device_us(fn) for what, fn in (("kernel", lambda: nb._launch(*args)),
-                                                   ("plain", lambda: nb.scatter_blocks_reference(*args)))}
+                                                   ("plain", lambda: nb.scatter_blocks_reference(*args)),
+                                                   ("library", library))}
     nb.launches = saved
     b = blocks_bounds(batch, K, P)
     term = max(b, key=b.get)
     log(f"normal blocks [{name}] at batch {list(batch)} K={K} P={P}: {ms:.4f} ms (CUDA events around the wrapper), "
         f"plain version on the card {plain_ms:.4f} ms, index_add_ alone {library_ms:.4f} ms; device time per call "
         f"(profiler): kernel {device['kernel'][0]:.2f} us in {device['kernel'][1]:.0f} launch, plain version "
-        f"{device['plain'][0]:.2f} us in {device['plain'][1]:.0f} launches; bounds bytes {b['bytes']:.5f} ms, "
+        f"{device['plain'][0]:.2f} us in {device['plain'][1]:.0f} launches, index_add_ alone "
+        f"{device['library'][0]:.2f} us in {device['library'][1]:.0f}; bounds bytes {b['bytes']:.5f} ms, "
         f"operations {b['operations']:.5f} ms; {100 * b[term] / ms:.2f} % of the larger [{card}]")
     return {
         "name": "normal_blocks",
@@ -1025,10 +1032,15 @@ def blocks_timed(name: str, args, card: str) -> dict:
 def blocks_edge_case(card: str) -> None:
     """The kernel on a small graph with repeated pairs and pairs whose i
     equals j (K=6, 40 pairs drawn with replacement, and the 120 pairs of
-    16 frames with 7 repeated and 2 self pairs), bit for bit against the
-    plain version; these launches are not counted."""
+    16 frames with 7 repeated and 2 self pairs), on one output block with
+    more terms than the kernel lists at a time (300 pairs of two frames,
+    most on (0, 0), (0, 1), (1, 0)) and on more pairs than one tile of
+    indices (1500 over 16 frames, drawn with replacement; both graphs
+    blocks_bench's), bit for bit against the plain version; these launches
+    are not counted."""
     import torch
 
+    from bundletrack_tpu_torch.blocks_bench import pair_graph
     from bundletrack_tpu_torch.kernels import normal_blocks as nb
 
     saved = nb.launches
@@ -1038,6 +1050,8 @@ def blocks_edge_case(card: str) -> None:
     graphs = {"K=6, 40 pairs with replacement": (6, rng.randint(0, 6, 40), rng.randint(0, 6, 40)),
               "K=16, 120 pairs + 7 repeated + 2 self": (K_BA, np.concatenate([i16, i16[extra], [3, 11]]),
                                                         np.concatenate([j16, j16[extra], [3, 11]]))}
+    graphs["K=2, 300 pairs, ~640 terms on block (0, 0)"] = (2, *pair_graph("tiled_list", 2))
+    graphs["K=16, 1500 pairs with replacement"] = (K_BA, *pair_graph("beyond_a_tile", K_BA))
     for name, (K, i, j) in graphs.items():
         P = len(i)
         sizes = [(P, 6, 6)] * 3 + [(P, 6)] * 2

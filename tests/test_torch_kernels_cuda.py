@@ -411,6 +411,12 @@ def _normal_blocks_case(case):
         i, j = np.concatenate([i, i[extra], [3, 11]]), np.concatenate([j, j[extra], [3, 11]])
     elif case == "reversed_and_repeated_K6":
         K, i, j = 6, rng.randint(0, 6, 40), rng.randint(0, 6, 40)
+    elif case in ("tiled_list_K2", "tiled_list_K2_eight_graphs"):  # hundreds of terms on block (0, 0): a list in parts
+        pairs = np.array([(0, 0), (0, 1), (1, 0), (1, 1)])[rng.choice(4, 300, p=[0.4, 0.3, 0.25, 0.05])]
+        K, i, j = 2, pairs[:, 0], pairs[:, 1]
+        batch = (8,) if case == "tiled_list_K2_eight_graphs" else ()
+    elif case == "pairs_beyond_a_tile_K16":  # 1500 pairs with replacement: more than one tile of indices
+        K, i, j = 16, rng.randint(0, 16, 1500), rng.randint(0, 16, 1500)
     else:  # one_pair_K2
         K, i, j = 2, np.array([0]), np.array([1])
     P = len(i)
@@ -423,7 +429,7 @@ def _normal_blocks_case(case):
 
 
 NORMAL_BLOCKS_CASES = ["all_pairs_K16", "repeated_and_self_pairs", "reversed_and_repeated_K6", "one_pair_K2",
-                       "eight_graphs_K16"]
+                       "eight_graphs_K16", "tiled_list_K2", "pairs_beyond_a_tile_K16", "tiled_list_K2_eight_graphs"]
 
 
 @pytest.mark.cuda
