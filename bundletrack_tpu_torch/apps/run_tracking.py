@@ -14,6 +14,17 @@ Usage:
     python -m bundletrack_tpu_torch.apps.run_tracking config.yml --frontend lfnet
     python -m bundletrack_tpu_torch.apps.run_tracking config.yml --dataset nocs
     python -m bundletrack_tpu_torch.apps.run_tracking config.yml --device cpu
+
+The `done:` line ends with the step's counters over the run
+(utils/profiling.py): steps, device-to-host reads by stage, streams
+solved, GN iterations, keyframes admitted.  To see where a frame's time
+goes, record a few frames with the step's spans and open
+trace_dir/trace.json in Perfetto (ui.perfetto.dev):
+
+    from bundletrack_tpu_torch.apps import run_tracking
+    from bundletrack_tpu_torch.utils.profiling import trace
+    with trace("trace_dir"):
+        run_tracking.main(["config.yml", "--max-frames", "20"])
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ def main(argv=None):
 
     from bundletrack_tpu_torch.config import load_config, nocs_config, ycbineoat_config
     from bundletrack_tpu_torch.tracker.driver import Tracker
+    from bundletrack_tpu_torch.utils.profiling import counters
 
     with open(args.config) as f:
         raw = yaml.safe_load(f)
@@ -95,6 +107,7 @@ def main(argv=None):
         pose_dir = os.path.join(cfg.debug_dir, "poses")
         os.makedirs(pose_dir, exist_ok=True)
         init_pose = loader.init_pose_in_model
+        before = counters()
         t_start = time.perf_counter()
         for i in range(n):
             fd = loader[i]
@@ -111,7 +124,8 @@ def main(argv=None):
         dt = time.perf_counter() - t_start
     finally:
         loader.close()
-    print(f"[run_tracking] done: {n} frames in {dt:.1f}s ({n / dt:.2f} fps)")
+    counts = " ".join(f"{k}={v}" for k, v in sorted((counters() - before).items()))
+    print(f"[run_tracking] done: {n} frames in {dt:.1f}s ({n / dt:.2f} fps); {counts}")
     return tracker
 
 

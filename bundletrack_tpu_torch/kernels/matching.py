@@ -21,6 +21,7 @@ import math
 import torch
 
 from bundletrack_tpu_torch.kernels import build
+from bundletrack_tpu_torch.utils.profiling import annotate
 
 SOURCE = "fused_mutual_match.cu"
 BIG = 1e30
@@ -182,12 +183,13 @@ def fused_mutual_match_pairs(
     outside [0, K) raises IndexError on the CPU and, since the card's copy
     is checked on the card, ends the launch with a CUDA error there.
     """
-    _check_table(desc, world, wnrm, valid, pair_i, pair_j)
-    if desc.device.type == "cpu":
-        return fused_mutual_match_pairs_reference(
-            desc, world, wnrm, valid, pair_i, pair_j, max_dist, max_normal_deg
-        )
-    return _launch(desc, world, wnrm, valid, pair_i, pair_j, *_thresholds(max_dist, max_normal_deg))
+    with annotate("bundletrack.matcher"):
+        _check_table(desc, world, wnrm, valid, pair_i, pair_j)
+        if desc.device.type == "cpu":
+            return fused_mutual_match_pairs_reference(
+                desc, world, wnrm, valid, pair_i, pair_j, max_dist, max_normal_deg
+            )
+        return _launch(desc, world, wnrm, valid, pair_i, pair_j, *_thresholds(max_dist, max_normal_deg))
 
 
 def fused_mutual_match(

@@ -51,6 +51,7 @@ import torch
 
 from bundletrack_tpu_torch.kernels import build
 from bundletrack_tpu_torch.ops.numerics import reciprocal_f32, square_f32, xla_mean_var
+from bundletrack_tpu_torch.utils.profiling import annotate
 
 SOURCE = "xla_order_sums.cu"
 WINDOW = 32  # XLA's window along each reduced axis
@@ -228,14 +229,15 @@ def xla_order_sums(x: torch.Tensor, per_channel: bool = False, round_bf16: bool 
     and `shift` do not go together.  CUDA tensors go to the kernel (or
     raise); CPU tensors to the plain version.  No gradient: an input that
     requires one while autograd records raises."""
-    x4 = _check(x, round_bf16, shift)
-    G = x4.shape[0] * (x4.shape[1] if per_channel else 1)
-    if shift is not None and (tuple(shift.shape) != (G,) or shift.device != x4.device):
-        raise ValueError(f"xla_order_sums: shift must be [{G}] on {x4.device}, not "
-                         f"{tuple(shift.shape)} on {shift.device}")
-    if x4.device.type == "cpu":
-        return xla_order_sums_reference(x4, per_channel, round_bf16, shift)
-    return _launch(x4, per_channel, round_bf16, shift)
+    with annotate("bundletrack.sums"):
+        x4 = _check(x, round_bf16, shift)
+        G = x4.shape[0] * (x4.shape[1] if per_channel else 1)
+        if shift is not None and (tuple(shift.shape) != (G,) or shift.device != x4.device):
+            raise ValueError(f"xla_order_sums: shift must be [{G}] on {x4.device}, not "
+                             f"{tuple(shift.shape)} on {shift.device}")
+        if x4.device.type == "cpu":
+            return xla_order_sums_reference(x4, per_channel, round_bf16, shift)
+        return _launch(x4, per_channel, round_bf16, shift)
 
 
 def xla_order_mean_var(x: torch.Tensor, round_bf16: bool = False):
@@ -244,10 +246,11 @@ def xla_order_mean_var(x: torch.Tensor, round_bf16: bool = False):
     the sums in XLA's order).  On the card the kernel's last block derives
     them from its sums, with the device's fused multiply-add, in the same
     launch; on the CPU the plain sums go through `xla_mean_var`."""
-    x4 = _check(x, round_bf16, None)
-    if x4.device.type == "cpu":
-        return xla_mean_var(*xla_order_sums_reference(x4, False, round_bf16), x4[0].numel())
-    return _launch(x4, False, round_bf16, None, stats=True)
+    with annotate("bundletrack.sums"):
+        x4 = _check(x, round_bf16, None)
+        if x4.device.type == "cpu":
+            return xla_mean_var(*xla_order_sums_reference(x4, False, round_bf16), x4[0].numel())
+        return _launch(x4, False, round_bf16, None, stats=True)
 
 
 def xla_order_instance_stats_reference(maps):
@@ -298,22 +301,23 @@ def xla_order_instance_stats(maps):
     jax.jit computes detector_ops.instance_norm's (module docstring).  On
     the card all maps (at most MAX_MAPS, on one device) go through one
     launch; on the CPU through the plain version.  No gradient."""
-    maps = list(maps)
-    if not maps:
-        return [], []
-    for x in maps:
-        if x.dim() != 4 or x.dtype != torch.float32:
-            raise ValueError(f"xla_order_instance_stats: a map is {x.dtype} {tuple(x.shape)}, not float32 "
-                             "[B, C, H, W]")
-        _check(x, False, None)
-    dev = maps[0].device
-    if any(x.device != dev for x in maps):
-        raise ValueError("xla_order_instance_stats: the maps lie on more than one device")
-    if dev.type == "cpu":
-        return xla_order_instance_stats_reference(maps)
-    if len(maps) > MAX_MAPS:
-        raise ValueError(f"xla_order_instance_stats: {len(maps)} maps, the kernel takes at most {MAX_MAPS}")
-    return _launch_instance([x.contiguous() for x in maps])
+    with annotate("bundletrack.sums"):
+        maps = list(maps)
+        if not maps:
+            return [], []
+        for x in maps:
+            if x.dim() != 4 or x.dtype != torch.float32:
+                raise ValueError(f"xla_order_instance_stats: a map is {x.dtype} {tuple(x.shape)}, not float32 "
+                                 "[B, C, H, W]")
+            _check(x, False, None)
+        dev = maps[0].device
+        if any(x.device != dev for x in maps):
+            raise ValueError("xla_order_instance_stats: the maps lie on more than one device")
+        if dev.type == "cpu":
+            return xla_order_instance_stats_reference(maps)
+        if len(maps) > MAX_MAPS:
+            raise ValueError(f"xla_order_instance_stats: {len(maps)} maps, the kernel takes at most {MAX_MAPS}")
+        return _launch_instance([x.contiguous() for x in maps])
 
 
 def add_probe(n: int = 1 << 20, device=None):

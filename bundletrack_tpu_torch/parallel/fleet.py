@@ -3,9 +3,9 @@
 Counterpart of bundletrack_tpu/parallel/fleet.py.  The JAX package batches
 S streams with jax.vmap over the TrackerState pytree; here the step itself
 carries a leading stream axis (tracker/bundler.make_batched_track_frame),
-so a fleet frame issues about the launches of one stream's frame, makes at
-most the same 2 device-to-host reads, and matches all S*P BA pairs in one
-launch of the matcher kernel.
+so a fleet frame launches about as many kernels as one stream's frame, makes
+the same 2 device-to-host reads (and the same 2 waits inside torch.linalg.svd),
+and matches all S*P BA pairs in one launch of the matcher kernel.
 
 Each stream keeps its own frame count, as each stream of the JAX fleet
 takes its own side of the first-frame lax.cond: a stream reset to a fresh
@@ -50,6 +50,7 @@ from bundletrack_tpu_torch.tracker.state import (
     _generator,
     init_tracker_state,
 )
+from bundletrack_tpu_torch.utils.profiling import annotate
 
 def _has_axis(mesh, axis) -> bool:
     return mesh is not None and axis in (mesh.mesh_dim_names or ())
@@ -104,9 +105,10 @@ def fleet_observation(gray, depth, mask, K, device) -> FrameObservation:
     """One fleet frame from per-stream numpy arrays [S, H, W] (gray uint8 or
     float, depth uint16 millimeters or float meters, mask bool) and
     intrinsics [S, 3, 3], uploaded to `device`."""
-    return FrameObservation(gray=_upload(gray, device), depth=_upload(depth, device),
-                            mask=_upload(np.asarray(mask, bool), device),
-                            K=_upload(np.asarray(K, np.float32), device))
+    with annotate("bundletrack.upload"):
+        return FrameObservation(gray=_upload(gray, device), depth=_upload(depth, device),
+                                mask=_upload(np.asarray(mask, bool), device),
+                                K=_upload(np.asarray(K, np.float32), device))
 
 
 # ---- sharded training ----------------------------------------------------------

@@ -39,6 +39,7 @@ from bundletrack_tpu_torch.solver.residuals import (
     sparse_normal_equations,
     sparse_residuals,
 )
+from bundletrack_tpu_torch.utils.profiling import annotate, count, read
 
 
 class GraphInputs(NamedTuple):
@@ -108,18 +109,19 @@ def build_normal_equations(inputs: GraphInputs, cfg, p2p=None, group=None):
                 max_normal_deg=p2p.max_normal_angle,
                 min_pair_pixels=p2p.min_pair_pixels,
             )
-        Hd, gd, cd, _ = dense_p2p_from_compact(
-            inputs.poses,
-            inputs.dense_compact,
-            inputs.frame_valid,
-            inputs.corres.pair_i,
-            inputs.corres.pair_j,
-            inputs.K_lowres,
-            robust_delta=cfg.robust_delta,
-            weight=cfg.w_dense_depth,
-            weight_color=cfg.w_dense_color,
-            **kw,
-        )
+        with annotate("bundletrack.gn.dense"):
+            Hd, gd, cd, _ = dense_p2p_from_compact(
+                inputs.poses,
+                inputs.dense_compact,
+                inputs.frame_valid,
+                inputs.corres.pair_i,
+                inputs.corres.pair_j,
+                inputs.K_lowres,
+                robust_delta=cfg.robust_delta,
+                weight=cfg.w_dense_depth,
+                weight_color=cfg.w_dense_color,
+                **kw,
+            )
         H, g, cost = H + Hd, g + gd, cost + cd
     if group is not None:
         parts = (H, g, cost.to(H.dtype))
@@ -171,6 +173,7 @@ def optimize_pose_graph(inputs: GraphInputs, cfg, p2p=None, group=None):
     else:
         iterations = torch.full(batch, cfg.num_iter_outer, dtype=torch.int32, device=poses.device)
     for it in range(cfg.num_iter_outer):
+        count("gn.iterations")
         H, g, step_cost = build_normal_equations(inputs._replace(poses=poses), cfg, p2p, group)
         H, g = _apply_gauge(H, g, free)
         if cfg.solver_backend == "pcg":
@@ -191,7 +194,7 @@ def optimize_pose_graph(inputs: GraphInputs, cfg, p2p=None, group=None):
         iterations = iterations + active.to(torch.int32)
         active = active & (torch.amax(torch.abs(delta), dim=(-2, -1)) >= cfg.early_stop_delta)
         active = all_reduce(active, group, MAX)
-        if it + 1 < cfg.num_iter_outer and not bool(active.any()):
+        if it + 1 < cfg.num_iter_outer and not read("reads.early_stop", active.any()):
             break  # device-to-host read, once per iteration
     info = {"final_cost": cost, "iterations": iterations}
     info.update(verify_solution(poses, inputs, cfg, group))
@@ -203,12 +206,13 @@ def optimize_pose_graph_verified(inputs: GraphInputs, cfg, p2p=None, group=None)
     cfg.use_verification and the high-residual fraction reaches
     cfg.verify_percent_thresh, the input poses come back and `rejected` is
     True.  Returns (poses, rejected [...] bool tensor, info)."""
-    poses, info = optimize_pose_graph(inputs, cfg, p2p=p2p, group=group)
-    rejected = torch.zeros(poses.shape[:-3], dtype=torch.bool, device=poses.device)
-    if cfg.use_verification:
-        rejected = info["high_residual_frac"] >= cfg.verify_percent_thresh
-        poses = torch.where(rejected[..., None, None, None], inputs.poses, poses)
-    return poses, rejected, info
+    with annotate("bundletrack.gn"):
+        poses, info = optimize_pose_graph(inputs, cfg, p2p=p2p, group=group)
+        rejected = torch.zeros(poses.shape[:-3], dtype=torch.bool, device=poses.device)
+        if cfg.use_verification:
+            rejected = info["high_residual_frac"] >= cfg.verify_percent_thresh
+            poses = torch.where(rejected[..., None, None, None], inputs.poses, poses)
+        return poses, rejected, info
 
 
 def verify_solution(poses, inputs: GraphInputs, cfg, group=None):

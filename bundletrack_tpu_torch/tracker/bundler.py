@@ -28,8 +28,11 @@ whose branches are lax.cond / jnp.where, and selects under vmap.  Here:
   previous-frame update is a per-stream select.
 
 So a tracked frame makes 2 device-to-host reads whatever S is (plus one per
-GN iteration with early stopping); the first frame makes none.  The BA
-matcher runs once per frame for all S*P pairs.
+GN iteration with early stopping), each through utils/profiling.read,
+which counts it; the first frame makes none.  The host waits for the card
+twice more per tracked frame, inside torch: torch.linalg.svd in the
+neighbour refit (geometry/procrustes.kabsch) reads its error flags.  The
+BA matcher runs once per frame for all S*P pairs.
 
 With `mesh` and `pair_axis` the BA pair work is sharded over that mesh
 axis's process group (the JAX step's shard_map over the pair axis): each
@@ -98,6 +101,7 @@ from bundletrack_tpu_torch.tracker.state import (
     add_stream_axis,
     drop_stream_axis,
 )
+from bundletrack_tpu_torch.utils.profiling import annotate, count, read
 
 
 def _normalize_obs(obs: FrameObservation) -> FrameObservation:
@@ -368,32 +372,36 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
 
     def step(state: TrackerState, obs: FrameObservation, init_pose: torch.Tensor,
              phases: Optional[tuple] = None):
-        S = state.kf_frame_id.shape[0]
-        obs = _normalize_obs(obs)
-        mask, pts_map, nrm_map, val_map, fd, K_low = _preprocess(obs, cfg)
-        feats = extract_frame_features(obs.gray, mask, pts_map, nrm_map, val_map, cfg.frontend,
-                                       lfnet_apply)
-        n_feat = torch.sum(feats.valid, dim=-1)
-        roi_ok = torch.sum(mask, dim=(-2, -1)) > 100  # the reference FAILs on a tiny ROI
-        per_stream = (feats, fd, K_low, n_feat, roi_ok)
+        with annotate("bundletrack.step"):
+            count("frames")
+            S = state.kf_frame_id.shape[0]
+            with annotate("bundletrack.preprocess"):
+                obs = _normalize_obs(obs)  # the last reference to the raw upload: freed here
+                mask, pts_map, nrm_map, val_map, fd, K_low = _preprocess(obs, cfg)
+            with annotate("bundletrack.frontend"):
+                feats = extract_frame_features(obs.gray, mask, pts_map, nrm_map, val_map, cfg.frontend,
+                                               lfnet_apply)
+            n_feat = torch.sum(feats.valid, dim=-1)
+            roi_ok = torch.sum(mask, dim=(-2, -1)) > 100  # the reference FAILs on a tiny ROI
+            per_stream = (feats, fd, K_low, n_feat, roi_ok)
 
-        new = [s for s, c in enumerate(state.frame_count) if c == 0]  # host ints: no read
-        if len(new) == S:
-            return first_frame(state, feats, fd, init_pose)
-        if not new:
-            return track(state, *per_stream, phases)
-        # a mixed frame: the running and the new streams each stepped as a
-        # fleet of their own, then written back in stream order
-        run = [s for s in range(S) if s not in new]
-        run_rows, new_rows = _stream_rows(run, init_pose.device), _stream_rows(new, init_pose.device)
-        if phases is not None:
-            phases = tuple(p.index_select(0, run_rows.to(p.device)) for p in phases)
-        st_run, out_run = track(_take_streams(state, run), *_select(per_stream, run_rows), phases)
-        st_new, out_new = first_frame(_take_streams(state, new), *_select((feats, fd, init_pose), new_rows))
-        st = _put_streams(_put_streams(state, run, st_run), new, st_new)
-        out = TrackOutput(*(a.new_empty((S, *a.shape[1:])).index_copy_(0, run_rows, a).index_copy_(0, new_rows, b)
-                            for a, b in zip(out_run, out_new)))
-        return st, out
+            new = [s for s, c in enumerate(state.frame_count) if c == 0]  # host ints: no read
+            if len(new) == S:
+                return first_frame(state, feats, fd, init_pose)
+            if not new:
+                return track(state, *per_stream, phases)
+            # a mixed frame: the running and the new streams each stepped as a
+            # fleet of their own, then written back in stream order
+            run = [s for s in range(S) if s not in new]
+            run_rows, new_rows = _stream_rows(run, init_pose.device), _stream_rows(new, init_pose.device)
+            if phases is not None:
+                phases = tuple(p.index_select(0, run_rows.to(p.device)) for p in phases)
+            st_run, out_run = track(_take_streams(state, run), *_select(per_stream, run_rows), phases)
+            st_new, out_new = first_frame(_take_streams(state, new), *_select((feats, fd, init_pose), new_rows))
+            st = _put_streams(_put_streams(state, run, st_run), new, st_new)
+            out = TrackOutput(*(a.new_empty((S, *a.shape[1:])).index_copy_(0, run_rows, a)
+                                .index_copy_(0, new_rows, b) for a, b in zip(out_run, out_new)))
+            return st, out
 
     def track(state, feats, fd, K_low, n_feat, roi_ok, phases):
         """A frame of streams that have all started."""
@@ -406,73 +414,76 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
         phases_nb, phases_pairs = phases[0], phases[1][:, lo:hi]
 
         # ---- neighbour matching + RANSAC + Procrustes init ----------------
-        # constant-velocity prediction: pred_pose advances by the last
-        # inter-frame delta every frame, FAIL frames included
-        pose_init = state.pred_pose
-        nb = match_pair(
-            feats.desc, feats.pts, feats.normals, feats.valid, pose_init,
-            state.prev_desc, state.prev_pts, state.prev_normals,
-            state.prev_kp_valid, state.prev_pose,
-            max_dist=fc.max_dist_neighbor,
-            max_normal_deg=fc.max_normal_neighbor,
-            max_matches=M,
-        )
-        pa = _take_rows(feats.pts, nb.idx_a)
-        pb = _take_rows(state.prev_pts, nb.idx_b)
-        na = _take_rows(feats.normals, nb.idx_a)
-        nbn = _take_rows(state.prev_normals, nb.idx_b)
-        prior_nb = se3_compose(se3_inverse(state.prev_pose), pose_init)
-        rr = ransac_pair(
-            pa, pb, na, nbn, nb.valid, prior_nb,
-            phases=phases_nb,
-            max_trans=rc.max_trans_neighbor,
-            max_rot_deg=rc.max_rot_deg_neighbor,
-            **ransac_kw,
-        )
-        T_new_to_prev = refine_pose_on_inliers(pa, pb, rr.inliers)
-        pose_new = _stream_select(rr.valid, se3_compose(state.prev_pose, T_new_to_prev), pose_init)
-        fail = (~rr.valid) | (~roi_ok) | (n_feat < 5)
-        # reinit gate: after a FAIL, demand reinit_min_matches inliers,
-        # decaying by one per FAIL frame beyond a patience of 5
-        patience = 5
-        required = torch.clamp(
-            rc.reinit_min_matches - torch.clamp(state.fail_streak - patience, min=0),
-            min=rc.min_match_after_ransac,
-        )
-        fail = fail | (state.need_reinit & (rr.num_inliers < required))
-        fail = broadcast_from_first(fail, group)
+        with annotate("bundletrack.neighbour"):
+            # constant-velocity prediction: pred_pose advances by the last
+            # inter-frame delta every frame, FAIL frames included
+            pose_init = state.pred_pose
+            nb = match_pair(
+                feats.desc, feats.pts, feats.normals, feats.valid, pose_init,
+                state.prev_desc, state.prev_pts, state.prev_normals,
+                state.prev_kp_valid, state.prev_pose,
+                max_dist=fc.max_dist_neighbor,
+                max_normal_deg=fc.max_normal_neighbor,
+                max_matches=M,
+            )
+            pa = _take_rows(feats.pts, nb.idx_a)
+            pb = _take_rows(state.prev_pts, nb.idx_b)
+            na = _take_rows(feats.normals, nb.idx_a)
+            nbn = _take_rows(state.prev_normals, nb.idx_b)
+            prior_nb = se3_compose(se3_inverse(state.prev_pose), pose_init)
+            rr = ransac_pair(
+                pa, pb, na, nbn, nb.valid, prior_nb,
+                phases=phases_nb,
+                max_trans=rc.max_trans_neighbor,
+                max_rot_deg=rc.max_rot_deg_neighbor,
+                **ransac_kw,
+            )
+            T_new_to_prev = refine_pose_on_inliers(pa, pb, rr.inliers)
+            pose_new = _stream_select(rr.valid, se3_compose(state.prev_pose, T_new_to_prev), pose_init)
+            fail = (~rr.valid) | (~roi_ok) | (n_feat < 5)
+            # reinit gate: after a FAIL, demand reinit_min_matches inliers,
+            # decaying by one per FAIL frame beyond a patience of 5
+            patience = 5
+            required = torch.clamp(
+                rc.reinit_min_matches - torch.clamp(state.fail_streak - patience, min=0),
+                min=rc.min_match_after_ransac,
+            )
+            fail = fail | (state.need_reinit & (rr.num_inliers < required))
+            fail = broadcast_from_first(fail, group)
 
         # ---- BA subset + edges -------------------------------------------
-        slots, sel_valid = select_ba_subset(state.kf_frame_id, state.kf_pose, pose_new, n_pool_sel)
+        with annotate("bundletrack.ba_pairs"):
+            slots, sel_valid = select_ba_subset(state.kf_frame_id, state.kf_pose, pose_new, n_pool_sel)
 
-        def app(pool, new):
-            return torch.cat([_take_rows(pool, slots), new[:, None]], dim=1)
+            def app(pool, new):
+                return torch.cat([_take_rows(pool, slots), new[:, None]], dim=1)
 
-        sel_col = sel_valid[..., None]
-        ba_desc = app(state.kf_desc, feats.desc)
-        ba_pts = app(state.kf_pts, feats.pts)
-        ba_nrm = app(state.kf_normals, feats.normals)
-        ba_kpv = torch.cat([_take_rows(state.kf_kp_valid, slots) & sel_col, feats.valid[:, None]], dim=1)
-        ba_pose = app(state.kf_pose, pose_new)
-        ba_valid = torch.cat([sel_valid, (~fail)[:, None]], dim=1)
-        dense_compact = stack_frame_dense(
-            app(state.kf_dsrc, fd.src),
-            torch.cat([_take_rows(state.kf_dvalid, slots) & sel_col, fd.valid[:, None]], dim=1),
-            app(state.kf_dlin, fd.lin),
-            app(state.kf_tchan, fd.tchan),
-        )
-        pool_slot_of = torch.cat([slots, torch.full((S, 1), -1, dtype=slots.dtype, device=dev)], dim=1)
-        pairs = pairs_on(dev, S)
-        pair_i, pair_j = pairs[:2]
-        bm, mpa, mpb, edge_valid, n_edges_new = ba_pair_section(
-            ba_desc, ba_pts, ba_nrm, ba_kpv, ba_pose, ba_valid,
-            state.mappoints, pool_slot_of, pairs, phases_pairs,
-        )
+            sel_col = sel_valid[..., None]
+            ba_desc = app(state.kf_desc, feats.desc)
+            ba_pts = app(state.kf_pts, feats.pts)
+            ba_nrm = app(state.kf_normals, feats.normals)
+            ba_kpv = torch.cat([_take_rows(state.kf_kp_valid, slots) & sel_col, feats.valid[:, None]], dim=1)
+            ba_pose = app(state.kf_pose, pose_new)
+            ba_valid = torch.cat([sel_valid, (~fail)[:, None]], dim=1)
+            dense_compact = stack_frame_dense(
+                app(state.kf_dsrc, fd.src),
+                torch.cat([_take_rows(state.kf_dvalid, slots) & sel_col, fd.valid[:, None]], dim=1),
+                app(state.kf_dlin, fd.lin),
+                app(state.kf_tchan, fd.tchan),
+            )
+            pool_slot_of = torch.cat([slots, torch.full((S, 1), -1, dtype=slots.dtype, device=dev)], dim=1)
+            pairs = pairs_on(dev, S)
+            pair_i, pair_j = pairs[:2]
+            bm, mpa, mpb, edge_valid, n_edges_new = ba_pair_section(
+                ba_desc, ba_pts, ba_nrm, ba_kpv, ba_pose, ba_valid,
+                state.mappoints, pool_slot_of, pairs, phases_pairs,
+            )
         no_ba = n_edges_new <= cfg.bundle.min_fm_edges_newframe
 
         # ---- BA solve for the streams that need one (lax.cond under vmap)
         run = ~(fail | no_ba)
-        any_run, all_run = torch.stack([run.any(), run.all()]).tolist()  # device-to-host read 1 of 2
+        run_flags = read("reads.solve", run)  # device-to-host read 1 of 2
+        any_run, all_run = any(run_flags), all(run_flags)
         ba_rejected = torch.zeros_like(run)
         ba_out_poses = ba_pose
         if any_run:
@@ -487,6 +498,7 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
             )
             ba_out_poses, ba_rejected, _ = optimize_pose_graph_verified(inputs, cfg.bundle, p2p=cfg.p2p,
                                                                         group=group)
+            count("gn.solves", sum(run_flags))
             if not all_run:
                 ba_out_poses = _stream_select(run, ba_out_poses, ba_pose)
                 ba_rejected = ba_rejected & run
@@ -512,7 +524,9 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
             cfg.keyframe.min_feat_num, cfg.keyframe.min_rot,
         )
         admit = broadcast_from_first(admit, group)
-        any_admit, all_admit = torch.stack([admit.any(), admit.all()]).tolist()  # read 2 of 2
+        admit_flags = read("reads.admit", admit)  # read 2 of 2
+        any_admit, all_admit = any(admit_flags), all(admit_flags)
+        count("keyframes.admitted", sum(admit_flags))
         if any_admit:
             sel = None if all_admit else admit
             new_slot = eviction_slot(st.kf_frame_id, st.kf_pose)

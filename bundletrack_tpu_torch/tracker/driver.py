@@ -23,6 +23,7 @@ from bundletrack_tpu_torch.tracker.state import (
     TrackOutput,
     init_tracker_state,
 )
+from bundletrack_tpu_torch.utils.profiling import annotate
 
 
 def ba_pair_axis(cfg: TrackerConfig, mesh) -> Optional[str]:
@@ -80,18 +81,19 @@ class Tracker:
         """Track one frame.  `phases` optionally fixes the RANSAC phases
         (neighbour [3, n_rep], pairs [P, 3, n_rep]); by default they come
         from the tracker's generator."""
-        obs = FrameObservation(
-            gray=_upload(gray, self.device),
-            depth=_upload(depth, self.device),
-            mask=_upload(np.asarray(mask, bool), self.device),
-            K=_upload(np.asarray(K, np.float32), self.device),
-        )
         if init_pose is None:
             init_pose = np.eye(4, dtype=np.float32)
-        pose = _upload(np.asarray(init_pose, np.float32), self.device)
-        if phases is not None:
-            phases = tuple(torch.as_tensor(p if isinstance(p, torch.Tensor) else np.array(p), device=self.device)
-                           for p in phases)
+        with annotate("bundletrack.upload"):
+            obs = FrameObservation(
+                gray=_upload(gray, self.device),
+                depth=_upload(depth, self.device),
+                mask=_upload(np.asarray(mask, bool), self.device),
+                K=_upload(np.asarray(K, np.float32), self.device),
+            )
+            pose = _upload(np.asarray(init_pose, np.float32), self.device)
+            if phases is not None:
+                phases = tuple(torch.as_tensor(p if isinstance(p, torch.Tensor) else np.array(p),
+                                               device=self.device) for p in phases)
         self.state, out = self._step(self.state, obs, pose, phases)
         self.outputs.append(out)
         return out

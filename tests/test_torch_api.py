@@ -34,17 +34,24 @@ from test_torch_fleet import COUNT_TOL, SEQ_ROT_TOL, SEQ_TRANS_TOL, H, W, jax_cf
 
 SUBPACKAGES = ["data", "eval", "frontend", "geometry", "matching", "models", "ops", "parallel", "ransac",
                "solver", "tracker", "utils"]
+# JAX exports the port leaves out on purpose: a stage timer that waits for
+# the card at the end of every stage (the port's tracing is
+# utils/profiling.py's spans and counters, which never wait)
+LEFT_OUT = {"utils": {"StageTimer"}}
 
 
 @pytest.mark.parametrize("name", SUBPACKAGES)
 def test_every_jax_export_has_the_ports_counterpart(name):
     jax_pkg = importlib.import_module(f"bundletrack_tpu.{name}")
     port_pkg = importlib.import_module(f"bundletrack_tpu_torch.{name}")
-    missing = [n for n in jax_pkg.__all__ if not hasattr(port_pkg, n)]
+    left_out = LEFT_OUT.get(name, set())
+    assert left_out <= set(jax_pkg.__all__) and not any(hasattr(port_pkg, n) for n in left_out)
+    exports = [n for n in jax_pkg.__all__ if n not in left_out]
+    missing = [n for n in exports if not hasattr(port_pkg, n)]
     assert not missing, f"bundletrack_tpu_torch.{name} lacks {missing}"
-    foreign = [n for n in jax_pkg.__all__ if not getattr(port_pkg, n).__module__.startswith("bundletrack_tpu_torch.")]
+    foreign = [n for n in exports if not getattr(port_pkg, n).__module__.startswith("bundletrack_tpu_torch.")]
     assert not foreign, foreign
-    assert set(jax_pkg.__all__) <= set(port_pkg.__all__)
+    assert set(exports) <= set(port_pkg.__all__)
 
 
 def test_importing_the_subpackages_builds_no_kernel():

@@ -146,7 +146,7 @@ def test_scan_covers_every_module_of_the_slices():
                    "parallel/fleet.py", "fleet_bench.py", "data/hard_world.py", "data/pairs.py",
                    "eval/hard_suite.py", "eval/frontend_eval.py", "models/lfnet_train.py", "models/vos_train.py",
                    "models/optim.py", "apps/train_lfnet.py", "apps/train_vos.py", "utils/checkpoint.py",
-                   "utils/timing.py", "utils/profiling.py", "utils/viz.py", "frontend/port_tf1.py",
+                   "utils/profiling.py", "utils/viz.py", "frontend/port_tf1.py",
                    "parallel/distributed.py", "parallel/pair_sharded.py", "ops/collectives.py"):
         assert os.path.join("bundletrack_tpu_torch", module) in scanned, module
 

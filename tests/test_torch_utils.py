@@ -1,7 +1,8 @@
 """The port's utilities against the JAX package's, on the CPU: npz
 checkpoints of tracker, fleet and optimiser state (mirrors of
-tests/test_apps_utils.py::TestCheckpoint), stage timing, profiling and viz
-(TestTimingAndViz), TF1 weight porting (tests/test_port_tf1.py), and
+tests/test_apps_utils.py::TestCheckpoint), profiling and viz
+(TestTimingAndViz; the port has no stage timer, tests/test_torch_profiling.py
+holds its spans and counters), TF1 weight porting (tests/test_port_tf1.py), and
 parameter files the port writes read back by the JAX package.
 """
 
@@ -124,28 +125,6 @@ class TestCheckpoint:
 
 
 class TestTimingAndViz:
-    def test_stage_timer(self):
-        from bundletrack_tpu_torch.utils.timing import StageTimer
-
-        t = StageTimer(device="cpu")
-        with t.stage("a"):
-            pass
-        with t.stage("a"):
-            pass
-        rep = t.evaluate()
-        assert "a" in rep and "n=    2" in rep
-        t.reset()
-        assert t.evaluate() == "=== StageTimer ==="
-
-    def test_stage_timer_and_hard_sync_default_to_the_card(self, monkeypatch):
-        from bundletrack_tpu_torch.utils.timing import StageTimer, hard_sync
-
-        tree = {"a": [torch.ones(2)], "b": (torch.zeros(1), 3)}
-        assert hard_sync(tree) is tree  # CPU tensors: nothing to wait for
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            StageTimer()
-
     def test_profiler_trace(self, tmp_path):
         from bundletrack_tpu_torch.utils.profiling import TRACE_FILE, annotate, trace
 
