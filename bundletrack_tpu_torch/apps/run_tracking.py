@@ -17,7 +17,8 @@ Usage:
 
 The `done:` line ends with the step's counters over the run
 (utils/profiling.py): steps, device-to-host reads by stage, streams
-solved, GN iterations, keyframes admitted.  To see where a frame's time
+solved, GN iterations, GN solves captured and streams solved by replaying
+them as CUDA graphs, keyframes admitted.  To see where a frame's time
 goes, record a few frames with the step's spans and open
 trace_dir/trace.json in Perfetto (ui.perfetto.dev):
 

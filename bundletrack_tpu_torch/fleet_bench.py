@@ -19,7 +19,7 @@ synchronised at both ends.  Two tables:
   crops go through one batched forward per fleet frame.
 
 Each row also gives: kernel launches per fleet frame and the device's busy
-share, from torch.profiler over two more fleet frames; the device-to-host
+share, from torch.profiler's trace of two more fleet frames; the device-to-host
 reads of one more fleet frame and where they are, from torch's sync debug
 mode; the peak
 device memory of the timed frames; the BA matcher's launches per fleet
@@ -50,6 +50,7 @@ from bundletrack_tpu_torch.config import BundleConfig, ShapeConfig, TrackerConfi
 from bundletrack_tpu_torch.data import render_synthetic_sequence
 from bundletrack_tpu_torch.kernels import matching as km
 from bundletrack_tpu_torch.parallel import fleet_observation, init_fleet_state, make_fleet_step
+from bundletrack_tpu_torch.utils.profiling import kernel_records
 
 WARMUP, TIMED, PROFILED = 2, 12, 2
 TABLE_480 = (1, 4, 8)
@@ -128,8 +129,8 @@ def fleet_row(cfg, seq, S: int, timed_frames: int, card: str, lfnet_apply=None) 
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         wall_s = run.timed(PROFILED)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3  # overlap ignored
+    kernels = kernel_records(prof)
+    busy_ms = sum(k.dur_us for k in kernels) / 1e3  # overlap ignored
 
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")

@@ -37,7 +37,9 @@ from bundletrack_tpu_torch.kernels import build
 
 SOURCE = "normal_blocks.cu"
 
-# kernel launches made through the wrapper (the main path's proof of route)
+# kernel launches made through the wrapper, and those of the wrapper's calls
+# captured in a CUDA graph of the GN solve, counted at each replay by
+# solver/gauss_newton.py (the main path's proof of route)
 launches = 0
 
 

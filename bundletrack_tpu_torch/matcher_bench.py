@@ -30,6 +30,8 @@ import statistics
 import numpy as np
 import torch
 
+from bundletrack_tpu_torch.utils.profiling import kernel_records
+
 TRACKER_WARMUP, PROFILED = 5, 3
 
 
@@ -86,9 +88,8 @@ def _device_ms_by_kernel(fn, calls: int):
             fn()
         torch.cuda.synchronize()
     ms = collections.Counter()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms[e.name] += e.time_range.elapsed_us() / 1e3
+    for k in kernel_records(prof):
+        ms[k.name] += k.dur_us / 1e3
     return ms
 
 

@@ -57,6 +57,7 @@ from bundletrack_tpu_torch.config import TrackerConfig
 from bundletrack_tpu_torch.frontend import lfnet as lfnet_mod
 from bundletrack_tpu_torch.tracker import bundler
 from bundletrack_tpu_torch.tracker.driver import Tracker
+from bundletrack_tpu_torch.utils.profiling import kernel_records
 
 # Published peaks of one H100 SXM (dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, f32 FLOP/s outside the tensor cores (TF32 is off in the port)
@@ -90,10 +91,6 @@ def _timed(name, fn, sink):
         return out
 
     return wrapper
-
-
-def _kernel_events(prof):
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def lfnet_forward_cost(lfnet, crop) -> dict:
@@ -165,10 +162,10 @@ def lfnet_forward_report(lfnet, cfg, seq, card: str) -> dict:
         for _ in range(n_prof):
             fwd()
         torch.cuda.synchronize()
-    kernels = _kernel_events(prof)
+    kernels = kernel_records(prof)
     by_name = collections.Counter()
     for e in kernels:
-        by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n_prof
+        by_name[e.name] += e.dur_us / 1e3 / n_prof
     device_ms = sum(by_name.values())
     cost = lfnet_forward_cost(lfnet, crop)
     dtype = "bf16" if cfg.frontend.bf16 else "f32"
@@ -252,12 +249,12 @@ def main() -> int:
             tracker.process_frame(seq.gray[f], seq.depth[f], seq.mask[f], seq.K, init_pose)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = _kernel_events(prof)
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3  # overlap ignored
+    kernels = kernel_records(prof)
+    busy_ms = sum(e.dur_us for e in kernels) / 1e3  # overlap ignored
     by_name = collections.Counter()
     counts = collections.Counter()
     for e in kernels:
-        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name] += e.dur_us / 1e3
         counts[e.name] += 1
     print(f"profiler: {n_prof} frames in {wall_ms:.2f} ms wall; device kernels {busy_ms:.2f} ms "
           f"({len(kernels) / n_prof:.0f} launches per frame); device busy {100 * busy_ms / wall_ms:.1f} % "

@@ -17,15 +17,34 @@ Each rank linearizes its own pairs, sparse and dense terms alike, and H, g
 and the cost are summed over the group once per GN iteration (the JAX
 package's psum); every rank then solves the same system, so the loop stays
 in lockstep.  The verification statistics are summed (counts) and maxed.
+
+CUDA graphs.  On the card, a solve without early stopping and without a
+group makes no host read, and its shapes fix its whole chain of ~3500
+small kernels: `optimize_pose_graph_verified` then replays it as CUDA
+graphs (`SolveGraphs`), one set per shape, with the same kernels in the
+same order, so the results are the eager loop's bit for bit.  The first
+solve of a shape runs eagerly, the second captures and every later one
+replays.  The Cholesky backend's batched triangular solve
+(`torch.cholesky_solve`, MAGMA's on the card) allocates device memory,
+which no capture allows: the loop is a generator that yields each of
+those solves (`_gn_loop`), and a set holds one graph per stretch between
+them, the solves running eagerly in between (each frees device memory,
+which waits for the card).  The PCG backend's solve is one graph.  The
+graphs' intermediates stay reserved in one memory pool per device, shared
+by every set (`CapturedSolve`).  Every other call runs the eager loop.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from bundletrack_tpu_torch.geometry.se3 import se3_update_left
+from bundletrack_tpu_torch.kernels import normal_blocks
 from bundletrack_tpu_torch.ops.collectives import MAX, all_reduce
 from bundletrack_tpu_torch.solver.dense_p2p import (
     CompactDense,
@@ -39,7 +58,7 @@ from bundletrack_tpu_torch.solver.residuals import (
     sparse_normal_equations,
     sparse_residuals,
 )
-from bundletrack_tpu_torch.utils.profiling import annotate, count, read
+from bundletrack_tpu_torch.utils.profiling import annotate, count, counters, read
 
 
 class GraphInputs(NamedTuple):
@@ -74,6 +93,12 @@ def solve_normal_equations_cholesky(H, g, lm_lambda: float):
     raise: cholesky_ex reports the failure in `info`, and the step is zero
     when `info != 0` or the solution is not finite.
     """
+    return _run_eagerly(_cholesky_steps(H, g, lm_lambda))
+
+
+def _cholesky_steps(H, g, lm_lambda: float):
+    """solve_normal_equations_cholesky as a generator: it yields the
+    triangular solve's (rhs [..., n, 1], L) and takes its solution back."""
     K = H.shape[-3]
     batch = H.shape[:-4]
     n = K * 6
@@ -84,9 +109,20 @@ def solve_normal_equations_cholesky(H, g, lm_lambda: float):
     Hs = Hs + lam * torch.eye(n, dtype=H.dtype, device=H.device)
     rhs = -g.reshape(*batch, n) / d
     L, info = torch.linalg.cholesky_ex(Hs)
-    delta = torch.cholesky_solve(rhs[..., None], L)[..., 0] / d
+    delta = (yield rhs[..., None], L)[..., 0] / d
     ok = (info == 0) & torch.all(torch.isfinite(delta), dim=-1)
     return torch.where(ok[..., None], delta, torch.zeros_like(delta)).reshape(*batch, K, 6)
+
+
+def _run_eagerly(steps):
+    """Drive a generator of this module to its return value, answering
+    each (rhs, L) it yields with torch.cholesky_solve."""
+    try:
+        ask = next(steps)
+        while True:
+            ask = steps.send(torch.cholesky_solve(*ask))
+    except StopIteration as done:
+        return done.value
 
 
 def _dense_weighted(cfg) -> bool:
@@ -158,6 +194,12 @@ def optimize_pose_graph(inputs: GraphInputs, cfg, p2p=None, group=None):
     stop then reads the max of every rank's flag, so all ranks leave the
     loop together.
     """
+    return _run_eagerly(_gn_loop(inputs, cfg, p2p, group))
+
+
+def _gn_loop(inputs: GraphInputs, cfg, p2p, group):
+    """optimize_pose_graph's loop as a generator (module docstring):
+    yields each Cholesky triangular solve's (rhs, L), returns (poses, info)."""
     _check_backend(cfg)
     if inputs.dense_compact is None and inputs.dense is not None and _dense_weighted(cfg):
         inputs = inputs._replace(dense_compact=compact_dense_frames(
@@ -179,7 +221,7 @@ def optimize_pose_graph(inputs: GraphInputs, cfg, p2p=None, group=None):
         if cfg.solver_backend == "pcg":
             delta = solve_normal_equations_pcg(H, g, num_iters=cfg.num_iter_inner, lm_lambda=cfg.lm_lambda)
         else:
-            delta = solve_normal_equations_cholesky(H, g, cfg.lm_lambda)
+            delta = yield from _cholesky_steps(H, g, cfg.lm_lambda)
         delta = delta * free.to(delta.dtype)[..., None]
         # trust-region style clamp: reject absurd steps
         step_norm = torch.linalg.norm(delta, dim=-1, keepdim=True)
@@ -205,14 +247,22 @@ def optimize_pose_graph_verified(inputs: GraphInputs, cfg, p2p=None, group=None)
     """optimize_pose_graph + the useVerification reject path: when
     cfg.use_verification and the high-residual fraction reaches
     cfg.verify_percent_thresh, the input poses come back and `rejected` is
-    True.  Returns (poses, rejected [...] bool tensor, info)."""
+    True.  Returns (poses, rejected [...] bool tensor, info).  A solve the
+    card can replay goes through `solve_graphs` (module docstring)."""
     with annotate("bundletrack.gn"):
-        poses, info = optimize_pose_graph(inputs, cfg, p2p=p2p, group=group)
-        rejected = torch.zeros(poses.shape[:-3], dtype=torch.bool, device=poses.device)
-        if cfg.use_verification:
-            rejected = info["high_residual_frac"] >= cfg.verify_percent_thresh
-            poses = torch.where(rejected[..., None, None, None], inputs.poses, poses)
-        return poses, rejected, info
+        if replayable(inputs, cfg, group):
+            return solve_graphs.solve(inputs, cfg, p2p)
+        return _run_eagerly(_verified(inputs, cfg, p2p, group))
+
+
+def _verified(inputs: GraphInputs, cfg, p2p, group):
+    """optimize_pose_graph_verified's body, a generator like _gn_loop."""
+    poses, info = yield from _gn_loop(inputs, cfg, p2p, group)
+    rejected = torch.zeros(poses.shape[:-3], dtype=torch.bool, device=poses.device)
+    if cfg.use_verification:
+        rejected = info["high_residual_frac"] >= cfg.verify_percent_thresh
+        poses = torch.where(rejected[..., None, None, None], inputs.poses, poses)
+    return poses, rejected, info
 
 
 def verify_solution(poses, inputs: GraphInputs, cfg, group=None):
@@ -233,3 +283,185 @@ def verify_solution(poses, inputs: GraphInputs, cfg, group=None):
         max_res = all_reduce(max_res, group, MAX)
     high = n_high / torch.clamp(n, min=1)
     return {"max_residual": max_res, "high_residual_frac": high}
+
+
+# ---- the solve as CUDA graphs (module docstring) ---------------------------
+
+# graph sets kept, one per shape solved twice: room for a fleet, a
+# single-stream tracker and two more shapes (a fleet's join frames solve
+# the running streams at another S, captured once such a frame comes
+# twice).  The benchmark's cells solve one shape; join traffic is not
+# measured.
+GRAPH_CAP = 4
+
+
+def replayable(inputs: GraphInputs, cfg, group=None) -> bool:
+    """Whether optimize_pose_graph_verified replays this solve: no group and
+    no early stop (the loop then makes no host read), every input a CUDA
+    tensor that needs no gradient and holds each element once (a broadcast
+    view takes no copy), and no capture under way on the current stream."""
+    if group is not None or cfg.early_stop_delta > 0.0:
+        return False
+    leaves = _leaves(inputs)
+    return (all(x.is_cuda and not x.requires_grad for x in leaves)
+            and not any(s == 0 and n > 1 for x in leaves for n, s in zip(x.shape, x.stride()))
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def graph_key(inputs: GraphInputs, cfg, p2p) -> tuple:
+    """What a graph set is captured for: each input's shape, strides,
+    storage offset, dtype and device (None for an absent field), and the
+    configurations, whose values the graphs hold as constants."""
+    return _rebuild(inputs, lambda x: (tuple(x.shape), x.stride(), x.storage_offset(), x.dtype, x.device)), cfg, p2p
+
+
+def _leaves(x) -> list:
+    """The tensors of a nest of named tuples, in field order."""
+    if x is None:
+        return []
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for f in x for t in _leaves(f)]
+
+
+def _rebuild(x, make):
+    """x's nest of named tuples with each tensor t replaced by make(t)."""
+    if x is None or isinstance(x, torch.Tensor):
+        return None if x is None else make(x)
+    return type(x)(*(_rebuild(f, make) for f in x))
+
+
+def _buffer(x: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor laid out as x (shape, strides, storage offset,
+    dtype, device), so that every kernel of the solve sees the caller's
+    layout and alignment."""
+    span = 1 + sum((n - 1) * s for n, s in zip(x.shape, x.stride())) if x.numel() else 0
+    base = torch.empty(x.storage_offset() + span, dtype=x.dtype, device=x.device)
+    return base.as_strided(x.shape, x.stride(), x.storage_offset())
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device):
+    """One side stream per device for every capture."""
+    return torch.cuda.Stream(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _graph_pool(device: torch.device):
+    """One memory pool per device for every graph set (CapturedSolve)."""
+    return torch.cuda.graph_pool_handle()
+
+
+class CapturedSolve:
+    """One shape's verified solve captured on the device's capture stream:
+    the static inputs it reads, one CUDA graph per stretch between two
+    eager triangular solves, and the outputs the last one writes.
+
+    Memory.  The static inputs (the caller's input layout, ~60 MB at the
+    fleet cells' S=8) are allocated outside the graphs.  Everything the
+    solve allocates inside them lives in the device's graph pool for as
+    long as a set does: the solve's working set, as large as the eager
+    solve's (whose memory the rest of a step reuses), and the cuBLAS
+    workspace of the capture stream, freed into the pool after each
+    capture.  Every set captures into that one pool, so the sets share the
+    working set: a replay reads only what it writes itself, its outputs are
+    cloned out, and no two replays run at the same time.  The pool is
+    device memory that `torch.cuda.max_memory_allocated` does not show once
+    the capture is done; `torch.cuda.memory_reserved` does."""
+
+    def __init__(self, inputs: GraphInputs, cfg, p2p):
+        device = inputs.poses.device
+        stream, pool = _capture_stream(device), _graph_pool(device)
+        # the shape's first solve, eager on this thread, initialised what
+        # the solve uses; cuBLAS keeps a workspace per stream for good:
+        # cleared around the capture, as torch's cudagraph trees do, the
+        # capture stream's is made inside it, in the pool
+        torch._C._cuda_clearCublasWorkspaces()
+        self.inputs = _rebuild(inputs, _buffer)
+        self._fill(inputs)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        self.solution = None  # the eager triangular solve's answer, read by the next graph
+        self.stages = []  # (graph, the (rhs, L) it leaves for the eager solve; None after the last)
+        passes, launches = counters()["gn.iterations"], normal_blocks.launches
+        steps = _verified(self.inputs, cfg, p2p, None)
+        while True:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                try:
+                    ask = steps.send(self.solution)
+                except StopIteration as done:
+                    ask, self.outputs = None, done.value
+            self.stages.append((graph, ask))
+            if ask is None:
+                break
+            if self.solution is None:
+                self.solution = torch.empty_like(ask[0])
+        torch._C._cuda_clearCublasWorkspaces()
+        # what the capture counted ran nowhere: a replay counts it
+        self.passes = counters()["gn.iterations"] - passes
+        self.launches = normal_blocks.launches - launches
+        count("gn.iterations", -self.passes)
+        normal_blocks.launches = launches
+
+    def _fill(self, inputs: GraphInputs) -> None:
+        for buf, x in zip(_leaves(self.inputs), _leaves(inputs)):
+            buf.copy_(x)
+
+    def replay(self, inputs: GraphInputs):
+        """(poses, rejected, info) for `inputs`, copied out of the graphs'
+        memory: the next replay overwrites it."""
+        self._fill(inputs)
+        for graph, ask in self.stages:
+            graph.replay()
+            if ask is not None:
+                self.solution.copy_(torch.cholesky_solve(*ask))
+        count("gn.iterations", self.passes)
+        normal_blocks.launches += self.launches
+        poses, rejected, info = self.outputs
+        return poses.clone(), rejected.clone(), {k: v.clone() for k, v in info.items()}
+
+
+class SolveGraphs:
+    """The replayed solves: at most GRAPH_CAP graph sets, the least recently
+    used out first.  A shape's first solve runs eagerly (a shape seen once,
+    such as a fleet's join frame, pins no memory), its second captures and
+    replays, and every later one replays.  Counters: `gn.captures` (graph
+    sets captured), `gn.replays` (streams solved by replaying); a replay
+    counts the GN passes (`gn.iterations`) and the normal-blocks launches
+    (`kernels.normal_blocks.launches`) its graphs make, as the eager loop
+    does, and the capture counts neither."""
+
+    def __init__(self):
+        self.sets = collections.OrderedDict()  # graph_key -> CapturedSolve
+        self._seen = collections.OrderedDict()  # graph_key of a shape solved once -> None
+
+    def solve(self, inputs: GraphInputs, cfg, p2p=None):
+        key = graph_key(inputs, cfg, p2p)
+        graphs = self.sets.get(key)
+        if graphs is None:
+            if key not in self._seen:
+                _put(self._seen, key, None)
+                return _run_eagerly(_verified(inputs, cfg, p2p, None))
+            del self._seen[key]
+            _check_backend(cfg)
+            graphs = CapturedSolve(inputs, cfg, p2p)
+            count("gn.captures")
+            _put(self.sets, key, graphs)
+        else:
+            self.sets.move_to_end(key)
+        out = graphs.replay(inputs)
+        count("gn.replays", math.prod(inputs.poses.shape[:-3]))
+        return out
+
+    def clear(self) -> None:
+        self.sets.clear()
+        self._seen.clear()
+
+
+def _put(lru: collections.OrderedDict, key, value) -> None:
+    lru[key] = value
+    while len(lru) > GRAPH_CAP:
+        lru.popitem(last=False)
+
+
+solve_graphs = SolveGraphs()  # the process's graph sets, one per shape solved twice

@@ -465,18 +465,20 @@ def make_batched_track_frame(cfg: TrackerConfig, H: int, W: int, lfnet_apply=Non
             ba_kpv = torch.cat([_take_rows(state.kf_kp_valid, slots) & sel_col, feats.valid[:, None]], dim=1)
             ba_pose = app(state.kf_pose, pose_new)
             ba_valid = torch.cat([sel_valid, (~fail)[:, None]], dim=1)
-            dense_compact = stack_frame_dense(
-                app(state.kf_dsrc, fd.src),
-                torch.cat([_take_rows(state.kf_dvalid, slots) & sel_col, fd.valid[:, None]], dim=1),
-                app(state.kf_dlin, fd.lin),
-                app(state.kf_tchan, fd.tchan),
-            )
             pool_slot_of = torch.cat([slots, torch.full((S, 1), -1, dtype=slots.dtype, device=dev)], dim=1)
             pairs = pairs_on(dev, S)
             pair_i, pair_j = pairs[:2]
             bm, mpa, mpb, edge_valid, n_edges_new = ba_pair_section(
                 ba_desc, ba_pts, ba_nrm, ba_kpv, ba_pose, ba_valid,
                 state.mappoints, pool_slot_of, pairs, phases_pairs,
+            )
+            # the dense stacks (~52 MB at 8 streams) after the BA RANSAC, whose
+            # trials set the card's peak memory
+            dense_compact = stack_frame_dense(
+                app(state.kf_dsrc, fd.src),
+                torch.cat([_take_rows(state.kf_dvalid, slots) & sel_col, fd.valid[:, None]], dim=1),
+                app(state.kf_dlin, fd.lin),
+                app(state.kf_tchan, fd.tchan),
             )
         no_ba = n_edges_new <= cfg.bundle.min_fm_edges_newframe
 

@@ -22,15 +22,18 @@ inside one `bundletrack.step` per fleet frame, on the launching thread:
       bundletrack.ba_pairs    the BA subset, its table gathers, the BA pair section
         bundletrack.matcher   the fused matcher kernel's wrapper
       bundletrack.gn          optimize_pose_graph_verified
-        bundletrack.gn.dense  each GN iteration's dense point-to-plane term
+        bundletrack.gn.dense  each GN iteration's dense point-to-plane term (an
+                              eager solve's only: a replayed CUDA graph has no spans)
 
 Counters.  `count(name, n)` adds to one Counter of the process, fed only
 from values the host already holds (no read, no launch); `counters()`
 returns a copy, so a caller takes the difference of two copies.  The step
 keeps: `frames` (steps), `reads.solve`, `reads.admit`, `reads.early_stop`
 (each device-to-host read, made through `read`), `gn.solves` (streams
-solved), `gn.iterations` (passes of the GN loop) and `keyframes.admitted`
-(streams that admitted a keyframe).
+solved), `gn.iterations` (passes of the GN loop, replayed ones included),
+`gn.captures` (solves captured as CUDA graphs), `gn.replays` (streams
+solved by a replay: over `gn.solves`, the share replayed) and
+`keyframes.admitted` (streams that admitted a keyframe).
 
 Recording a run with the spans: wrap it in `trace(log_dir)` and open
 `log_dir/trace.json` in Perfetto (ui.perfetto.dev) or chrome://tracing,
@@ -42,14 +45,22 @@ for instance
         run_tracking.main(["config.yml", "--max-frames", "20"])
 
 A trace of many frames is large: profile a few.
+
+Reading a profiler's kernels: `kernel_records(prof)` lists every kernel
+the card ran while `prof` recorded, from its Chrome trace, those that a
+replayed CUDA graph ran included; `prof.events()` folds a graph's
+kernels into fewer records with longer spans.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import json
 import os
+import tempfile
 from contextlib import contextmanager
+from typing import NamedTuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -72,6 +83,24 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+class Kernel(NamedTuple):
+    name: str
+    start_us: float
+    dur_us: float
+
+
+def kernel_records(prof) -> list:
+    """Every kernel the card ran while the finished profiler `prof`
+    recorded, in start order, read from its Chrome trace."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, TRACE_FILE)
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return sorted((Kernel(e["name"], float(e["ts"]), float(e["dur"])) for e in events
+                   if e.get("ph") == "X" and e.get("cat") == "kernel"), key=lambda k: k.start_us)
 
 
 def annotate(name: str):

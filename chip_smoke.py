@@ -24,7 +24,9 @@
    same inputs: every status and every pose bit-equal to the first run's.
    Then the normal-blocks kernel (csrc/normal_blocks.cu: the Gauss-Newton
    pair blocks summed into H and g in one fixed order, the CPU's): every
-   call of both runs (the sparse and the dense terms at K=16, P=120) held
+   call of both runs made outside a CUDA graph (the sparse and the dense
+   terms at K=16, P=120; a solve replayed as CUDA graphs launches it from
+   inside them, and is held to the eager loop by the card tests) held
    bit for bit to its plain version on CPU copies of the same inputs, the
    same on a graph of 40 pairs over 6 frames drawn with replacement, on
    the 120 pairs with 7 repeated and 2 self pairs, on 300 pairs of two
@@ -458,13 +460,18 @@ def timed_calls(owner, name: str):
 @contextlib.contextmanager
 def recorded_calls(owner, name: str, args: bool = False):
     """Records the result of every call of owner.name, or with `args` its
-    (args, kwargs); yields the list."""
+    (args, kwargs); yields the list.  A call made while a CUDA graph is
+    captured is not recorded: its outputs are written only when the graph
+    replays, and each replay overwrites them."""
+    import torch
+
     original = getattr(owner, name)
     results = []
 
     def record(*a, **kwargs):
         out = original(*a, **kwargs)
-        results.append((a, kwargs) if args else out)
+        if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+            results.append((a, kwargs) if args else out)
         return out
 
     setattr(owner, name, record)
@@ -758,11 +765,16 @@ _WITHOUT = {"sums": "the bf16 LF-Net ran without the sums kernel",
 def counted(kernel: str, path: str):
     """Counts the launches of one kernel, "sums" or "blocks", over one path
     (from 0, read after it) into LAUNCHES[kernel]; a path that launched it
-    no time fails."""
+    no time fails.  The path starts with none of the process's CUDA graphs
+    of the GN solve (solver/gauss_newton.py), so its first solve of each
+    shape runs eagerly and its counts and checks come from its own solves;
+    a replayed solve counts the normal-blocks launches its graphs make."""
     from bundletrack_tpu_torch.kernels import norm_sums, normal_blocks
+    from bundletrack_tpu_torch.solver.gauss_newton import solve_graphs
 
     module = {"sums": norm_sums, "blocks": normal_blocks}[kernel]
     module.launches = 0
+    solve_graphs.clear()
     yield
     LAUNCHES[kernel][path] = module.launches
     if module.launches == 0:
@@ -939,16 +951,18 @@ def blocks_bounds(batch, K: int, P: int) -> dict:
 
 
 def device_us(fn, calls: int = 10) -> tuple:
-    """(device us, kernel launches) per call of fn, from the profiler."""
+    """(device us, kernel launches) per call of fn, from the profiler's trace."""
     import torch
+
+    from bundletrack_tpu_torch.utils.profiling import kernel_records
 
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in kernels) / calls, len(kernels) / calls
+    kernels = kernel_records(prof)
+    return sum(k.dur_us for k in kernels) / calls, len(kernels) / calls
 
 
 def blocks_check(name: str, outs, calls) -> dict:
@@ -1690,13 +1704,14 @@ def frame_costs(cfg, seq, frames: int) -> dict:
     """A fresh tracker on `frames` frames: the median frame ms after the
     warm-up frames (host clock, device synchronised around each frame);
     then one more frame's device-to-host syncs (torch's sync debug mode)
-    and one more's kernel launches and device ms (torch.profiler)."""
+    and one more's kernel launches and device ms (torch.profiler's trace)."""
     import warnings
 
     import torch
 
     from bundletrack_tpu_torch.cardrun import H, W, steady_median, timed_frames
     from bundletrack_tpu_torch.tracker.driver import Tracker
+    from bundletrack_tpu_torch.utils.profiling import kernel_records
 
     tracker = Tracker(cfg, H, W)
     init_pose = np.linalg.inv(seq.ob_in_cam[0])
@@ -1718,9 +1733,9 @@ def frame_costs(cfg, seq, frames: int) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         track(frames + 1)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = kernel_records(prof)
     return {"ms": steady_median(frame_ms), "launches": len(kernels),
-            "device_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3, "syncs": syncs}
+            "device_ms": sum(k.dur_us for k in kernels) / 1e3, "syncs": syncs}
 
 
 def solve_times(K: int = K_BA) -> dict:
@@ -2869,6 +2884,7 @@ def mesh_fleet(rank: int, world: int, fleet, phases, axis_sizes: dict, S: int, F
         make_fleet_step,
         make_mesh,
     )
+    from bundletrack_tpu_torch.solver.gauss_newton import solve_graphs
     from bundletrack_tpu_torch.tracker import set_streams
 
     cfg = TrackerConfig(bundle=BundleConfig(ba_mesh_axis="pairs" if "pairs" in axis_sizes else ""))
@@ -2878,6 +2894,7 @@ def mesh_fleet(rank: int, world: int, fleet, phases, axis_sizes: dict, S: int, F
     step, state = make_fleet_step(cfg, H, W, mesh=mesh), init_fleet_state(cfg, H, W, S, mesh=mesh)
     ip = torch.as_tensor(np.linalg.inv(fleet["ob_in_cam"][rows, 0]).astype(np.float32), device="cuda")
     km.launches = nb.launches = 0
+    solve_graphs.clear()  # this path's counts from its own solves
     poses, statuses, frame_ms = [], [], []
     for f in range(F):
         if join and f == JOIN_FRAME:

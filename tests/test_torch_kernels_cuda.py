@@ -504,15 +504,22 @@ def test_tracker_on_the_card_matches_the_cpu():
 @pytest.mark.cuda
 def test_tracker_on_the_card_repeats_bit_for_bit():
     """The 5-frame card run twice on fresh trackers: equal statuses and
-    pose bits (the GN blocks summed in a fixed order), every tracked frame
-    through the normal-blocks kernel."""
+    pose bits (the GN blocks summed in a fixed order).  The first run's
+    first solve goes through the normal-blocks kernel's wrapper (the
+    process's CUDA graphs of the solve cleared), the second run's four
+    solves all replay the graphs captured in the first."""
     from bundletrack_tpu_torch.kernels import normal_blocks as nb
+    from bundletrack_tpu_torch.solver.gauss_newton import solve_graphs
+    from bundletrack_tpu_torch.utils import profiling
 
     _need_card()
+    solve_graphs.clear()
     before = nb.launches
     first = _track_five_frames("cuda")
     assert nb.launches > before
+    replays = profiling.counters()["gn.replays"]
     again = _track_five_frames("cuda")
+    assert profiling.counters()["gn.replays"] - replays == 4
     assert first[1] == again[1] == [0] * 5
     assert np.array_equal(first[0], again[0])
 

@@ -8,7 +8,8 @@ span of the step appears with its calls per fleet frame, nested in
 `bundletrack.step`; without one `annotate` is a shared null context and the
 step's outputs and state are bit for bit those of a profiled run; the
 counters agree with the outputs and the configuration; no device-to-host
-read escapes `profiling.read`; and on hand-made chrome-trace events the
+read escapes `profiling.read`; `kernel_records` lists every kernel event
+of a trace; and on hand-made chrome-trace events the
 benchmark's Trace reads the same with and without the program's spans, the
 program's idle split adds up to the window's idle time, and each reading
 gives its value.
@@ -159,6 +160,40 @@ def test_counters_returns_a_copy():
     assert profiling.counters()["test.copy"] - copy["test.copy"] == -5
     assert profiling.read("test.read", torch.tensor([True, False])) == [True, False]
     assert profiling.counters()["test.read"] >= 1
+
+
+class _HandMadeProfile:
+    """Writes a hand-made Chrome trace where a finished profiler writes its own."""
+
+    def __init__(self, events):
+        self.events = events
+
+    def export_chrome_trace(self, path):
+        with open(path, "w") as f:
+            json.dump({"traceEvents": self.events}, f)
+
+
+@pytest.mark.parametrize("source", ["hand_made", "cpu_profile"])
+def test_kernel_records_lists_every_kernel_of_the_trace(source):
+    """One record per kernel event, graph kernels (no launch on the host)
+    included, in start order; host ops, copies and annotations left out."""
+    if source == "cpu_profile":
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            torch.ones(4).sum()
+        assert profiling.kernel_records(prof) == []
+        return
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "b", "ts": 20.5, "dur": 3, "args": {"correlation": 7}},
+        {"ph": "X", "cat": "kernel", "name": "a", "ts": 10, "dur": 2.25, "args": {"graph id": 1}},
+        {"ph": "X", "cat": "kernel", "name": "a", "ts": 14, "dur": 1, "args": {"graph id": 1}},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::add", "ts": 9, "dur": 1},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 30, "dur": 4},
+        {"ph": "X", "cat": "user_annotation", "name": "bundletrack.gn", "ts": 8, "dur": 20},
+        {"ph": "i", "cat": "kernel", "name": "marker", "ts": 11},
+    ]
+    got = profiling.kernel_records(_HandMadeProfile(events))
+    assert got == [profiling.Kernel("a", 10.0, 2.25), profiling.Kernel("a", 14.0, 1.0),
+                   profiling.Kernel("b", 20.5, 3.0)]
 
 
 @pytest.mark.parametrize("frontend", ["classical", "lfnet"])
